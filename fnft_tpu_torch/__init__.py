@@ -3,7 +3,9 @@
 The public names are those of :mod:`fnft_tpu` for what is ported so far:
 :func:`nsev` (forward NFT, nonlinear Schroedinger, vanishing BC) with the
 2SPLIT4B discretization and its options. Work runs on the device of the
-input tensor, in its precision (complex128 by default). On a CUDA tensor the
+input tensor, in its precision (complex128 by default); an input that is
+not a tensor goes to the CUDA device unless ``device=`` names another, and
+without CUDA that default raises. On a CUDA tensor the
 two hot kernels run as hand-written sm_90a CUDA (``csrc/``, built with nvcc
 at first use); on a CPU tensor their plain PyTorch versions run.
 

@@ -9,7 +9,8 @@ package's:
   above 4096 roots) -> filter/merge -> vectorized Newton (full D)
   -> norming constants / residues via phi/psi sweeps.
 
-Everything runs on the device of ``q``. Richardson extrapolation and the
+Everything runs on the device of ``q``: a tensor's own, the CUDA device for
+an array unless ``device=`` says otherwise. Richardson extrapolation and the
 slow top-level discretizations are ROADMAP Queue 1 item 8.
 """
 
@@ -223,15 +224,23 @@ def _nsev_base(q_eff, r_eff, q_orig, t0, t1, m, xi0, xi1, kappa, opts,
     return result
 
 
-def _as_signal(q) -> torch.Tensor:
-    """A tensor stays where it is; anything else becomes a CPU tensor."""
-    return q if isinstance(q, torch.Tensor) else torch.as_tensor(np.asarray(q))
+def _as_signal(q, device=None) -> torch.Tensor:
+    """A tensor stays on its device; anything else goes to ``device``, which
+    defaults to the CUDA card. Without CUDA that default raises: the work
+    runs on the CPU only when the caller asks for it."""
+    if isinstance(q, torch.Tensor):
+        return q
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "fnft_tpu_torch runs on the CUDA device by default and none is "
+            "available; pass device='cpu' (or a CPU tensor) to run on the CPU")
+    return torch.as_tensor(np.asarray(q), device=dev)
 
 
 def _nsev(q, t_span, m, xi_span, kappa, opts, want_bound_states,
           initial_states):
     opts = opts or NsevOpts()
-    q = _as_signal(q)
     d = q.shape[-1]
     t0, t1 = float(t_span[0]), float(t_span[1])
     check_arg(d >= 2, "D must be >= 2")
@@ -277,7 +286,7 @@ def _nsev(q, t_span, m, xi_span, kappa, opts, want_bound_states,
 
 def nsev(q, t_span, *, m: int = 0, xi_span=None, kappa: int = +1,
          opts: NsevOpts | None = None,
-         want_bound_states: bool = True) -> NsevResult:
+         want_bound_states: bool = True, device=None) -> NsevResult:
     """Fast forward NFT of the vanishing-BC NSE (reference fnft_nsev.c:133).
 
     Args:
@@ -289,20 +298,25 @@ def nsev(q, t_span, *, m: int = 0, xi_span=None, kappa: int = +1,
       kappa: +1 focusing, -1 defocusing.
       opts: :class:`NsevOpts`.
       want_bound_states: compute the discrete spectrum (kappa=+1 only).
+      device: where an array ``q`` goes (default: the CUDA device; raises
+        without one). A tensor ``q`` stays on its own device.
 
     Returns :class:`NsevResult` with requested fields populated.
     """
-    return _nsev(q, t_span, m, xi_span, kappa, opts, want_bound_states, None)
+    return _nsev(_as_signal(q, device), t_span, m, xi_span, kappa, opts,
+                 want_bound_states, None)
 
 
 def nsev_with_initial_states(q, t_span, initial_states, *, m: int = 0,
                              xi_span=None, kappa: int = +1,
-                             opts: NsevOpts | None = None) -> NsevResult:
-    """NEWTON-localized nsev with user-supplied initial bound states."""
+                             opts: NsevOpts | None = None,
+                             device=None) -> NsevResult:
+    """NEWTON-localized nsev with user-supplied initial bound states, which
+    follow ``q``'s device (``device`` as in :func:`nsev`)."""
     opts = dataclasses.replace(
         opts or NsevOpts(),
         bound_state_localization=BoundStateLocalization.NEWTON)
-    q = _as_signal(q)
+    q = _as_signal(q, device)
     lam0 = torch.as_tensor(np.asarray(initial_states), device=q.device).to(
         complex_dtype_of(q))
     return _nsev(q, t_span, m, xi_span, kappa, opts, True, lam0)

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, at first use, and loaded with ctypes.
+``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``, one process per
+source, all started together, and linked into one shared library with a
+plain C interface, at first use, and loaded with ctypes.
 The library's name carries a hash of the sources and flags, so an edited
 source is rebuilt and a finished build is reused. Nothing here runs at
 import time: the CPU tests import every module on machines without nvcc.
@@ -21,7 +22,7 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -58,15 +59,32 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(f) for f in sorted(CSRC_DIR.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {res.returncode}:\n"
-                           f"{res.stderr[-4000:]}")
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    tmp = so.with_name(f"{tag}.tmp")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(res.stderr)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    (BUILD_DIR / "build.log").write_text("".join(log))
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{failed[0][-4000:]}")
     os.replace(tmp, so)  # atomic: a concurrent build never sees a torn file
     return so
 
@@ -81,8 +99,11 @@ def library() -> ctypes.CDLL:
             lib.fnft_fused_tree_levels.argtypes = [
                 vp, vp, vp, i64, i32, i32, i32, i32, vp]
             lib.fnft_fused_tree_levels.restype = i32
+            lib.fnft_repulsion_scratch_rows.argtypes = [
+                i32, i32, ctypes.POINTER(i32)]
+            lib.fnft_repulsion_scratch_rows.restype = i32
             lib.fnft_repulsion_sum.argtypes = [
-                vp, vp, vp, vp, i32, i32, i32, i32, vp]
+                vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
             lib.fnft_repulsion_sum.restype = i32
             _lib = lib
     return _lib

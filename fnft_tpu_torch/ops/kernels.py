@@ -12,6 +12,8 @@ main path went through the kernels; plain-version calls do not count.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 LAUNCHES = {"fused_tree_levels": 0, "repulsion_sum": 0}
@@ -75,7 +77,9 @@ def fused_tree_levels(p: torch.Tensor, levels: int, *,
     On the H100 (``csrc/tree_levels.cu``) one thread owns one subtree of
     2^L matrices in registers, so each matrix is read from device memory
     once and each product written once: the kernel is bound by those
-    bytes, where the plain version makes ~L x 20 passes over them.
+    bytes, where the plain version makes ~L x 20 passes over them. A
+    persistent block stages spans of 64 subtrees through shared memory
+    (coalesced, double-buffered copies in, coalesced stores out).
     """
     if not _route(p):
         return fused_tree_levels_plain(p, levels, normalize=normalize)
@@ -140,10 +144,14 @@ def repulsion_sum(z_all: torch.Tensor, z_t: torch.Tensor,
     """Aberth repulsion ``s_i = sum_{j != t_idx_i} 1/(z_t_i - z_all_j)``.
 
     Replaces the Pallas kernel ``fnft_tpu/ops/pallas_kernels.py:254``.
-    On the H100 (``csrc/repulsion.cu``) a block of 128 threads takes 128
-    active roots and streams ``z_all`` through shared memory in tiles of
-    512; the O(m deg) divisions bound it, so the low-precision contract
-    (reciprocals and tile sums in fp32) is what buys its speed.
+    On the H100 (``csrc/repulsion.cu``) the grid is row blocks (256
+    active roots, two per thread) x splits of the j range, chosen there
+    from deg, m and the SM count; each block streams its split of ``z_all``
+    through shared memory in tiles of 512, and a second kernel adds the
+    splits' partial sums in a fixed order, so the result has the same bits
+    on every launch. The O(m deg) reciprocals bound it, so the
+    low-precision contract (reciprocals and tile sums in fp32) is what buys
+    its speed.
     """
     if not _route(z_t):
         return repulsion_sum_plain(z_all, z_t, t_idx, lowprec=lowprec)
@@ -162,11 +170,17 @@ def repulsion_sum(z_all: torch.Tensor, z_t: torch.Tensor,
     from fnft_tpu_torch.ops import _build
 
     lib = _build.library()
+    deg, m = z_all.shape[0], z_t.shape[0]
     out = torch.empty_like(z_t)
     with torch.cuda.device(z_t.device):
+        rows = ctypes.c_int(0)
+        _check_launch("repulsion_sum", lib.fnft_repulsion_scratch_rows(
+            deg, m, ctypes.byref(rows)))
+        part = (torch.empty((rows.value, m), dtype=z_t.dtype,
+                            device=z_t.device) if rows.value > 1 else out)
         err = lib.fnft_repulsion_sum(
             z_all.data_ptr(), z_t.data_ptr(), t_idx.data_ptr(),
-            out.data_ptr(), z_all.shape[0], z_t.shape[0],
+            out.data_ptr(), part.data_ptr(), rows.value, deg, m,
             int(z_t.dtype == torch.complex128), int(lowprec),
             torch.cuda.current_stream().cuda_stream)
     _check_launch("repulsion_sum", err)
