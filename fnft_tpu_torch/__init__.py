@@ -1,8 +1,11 @@
 """fnft_tpu_torch: the PyTorch + CUDA port of fnft_tpu, for NVIDIA Hopper.
 
 The public names are those of :mod:`fnft_tpu` for what is ported so far:
-:func:`nsev` (forward NFT, nonlinear Schroedinger, vanishing BC) with the
-2SPLIT4B discretization and its options. Work runs on the device of the
+:func:`nsev` (forward NFT, nonlinear Schroedinger, vanishing BC) with every
+discretization (the 21 fast splitting schemes and the slow BO, CF4_2,
+CF4_3, CF5_3, CF6_4, ES4, TES4), all its options and Richardson
+extrapolation, and :func:`kdvv` (Korteweg-de Vries, vanishing BC) with
+:func:`kdvv_bound_states` and :func:`kdv_scatter_matrix`. Work runs on the device of the
 input tensor, in its precision (complex128 by default); an input that is
 not a tensor goes to the CUDA device unless ``device=`` names another, and
 without CUDA that default raises. On a CUDA tensor the
@@ -15,6 +18,14 @@ tests only.
 
 from fnft_tpu_torch.config import default_complex_dtype
 from fnft_tpu_torch.models.discretization import Discretization
+from fnft_tpu_torch.models.kdvv import (
+    KdvvOpts,
+    KdvvResult,
+    kdv_fscatter,
+    kdv_scatter_matrix,
+    kdvv,
+    kdvv_bound_states,
+)
 from fnft_tpu_torch.models.nsev import (
     BoundStateFilter,
     BoundStateLocalization,
@@ -23,6 +34,7 @@ from fnft_tpu_torch.models.nsev import (
     NsevOpts,
     NsevResult,
     nsev,
+    nsev_max_k,
     nsev_with_initial_states,
 )
 
@@ -38,7 +50,9 @@ def fnft_version():
 
 
 __all__ = [
-    "nsev", "nsev_with_initial_states", "NsevOpts", "NsevResult",
+    "nsev", "nsev_with_initial_states", "nsev_max_k", "NsevOpts",
+    "NsevResult", "kdvv", "kdvv_bound_states", "kdv_scatter_matrix",
+    "kdv_fscatter", "KdvvOpts", "KdvvResult",
     "fnft_version", "Discretization", "BoundStateFilter",
     "BoundStateLocalization", "DiscspecType", "ContspecType",
     "default_complex_dtype",

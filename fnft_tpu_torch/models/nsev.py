@@ -1,17 +1,18 @@
 """Forward NFT for the nonlinear Schroedinger equation, vanishing BCs.
 
-Port of ``fnft_tpu/models/nsev.py`` (reference fnft_nsev.c) for the fast
-one-sample-per-step schemes (2SPLIT4B today). The pipeline is the JAX
-package's:
+Port of ``fnft_tpu/models/nsev.py`` (reference fnft_nsev.c), every
+discretization. The pipeline of the fast schemes is the JAX package's:
 
   preprocess -> fscatter (FFT tree, K1) -> contspec via chirp-Z + phase
   factors -> bound states: subsample fscatter -> Aberth roots of a(z) (K2
   above 4096 roots) -> filter/merge -> vectorized Newton (full D)
-  -> norming constants / residues via phi/psi sweeps.
+  -> norming constants / residues via phi/psi sweeps
+  -> optional Richardson extrapolation against a half-D pass.
 
+The slow schemes (BO, CF*, ES4, TES4) evaluate the continuous spectrum by
+the monodromy matrix at every xi and localize bound states by Newton only.
 Everything runs on the device of ``q``: a tensor's own, the CUDA device for
-an array unless ``device=`` says otherwise. Richardson extrapolation and the
-slow top-level discretizations are ROADMAP Queue 1 item 8.
+an array unless ``device=`` says otherwise.
 """
 
 from __future__ import annotations
@@ -31,12 +32,14 @@ from fnft_tpu_torch.models.discretization import (
     Discretization,
     degree,
     is_fast,
+    method_order,
+    upsampling_factor,
     z_to_lambda,
 )
 from fnft_tpu_torch.ops.fscatter import fscatter
 from fnft_tpu_torch.ops.poly import _pow2, chirpz
 from fnft_tpu_torch.ops.roots import poly_roots
-from fnft_tpu_torch.ops.scatter import scatter_bound_states
+from fnft_tpu_torch.ops.scatter import scatter_bound_states, scatter_matrix
 from fnft_tpu_torch.utils import misc
 
 
@@ -92,6 +95,12 @@ class NsevResult:
     residues: Optional[torch.Tensor] = None
 
 
+def nsev_max_k(d: int, opts: NsevOpts | None = None) -> int:
+    """Maximum number of detectable bound states (fnft_nsev_max_K, :51-57)."""
+    opts = opts or NsevOpts()
+    return degree(opts.discretization) * d
+
+
 def _re_bound(eps_t: float, map_coeff: float) -> float:
     """Resolvable real-part range (fnft_nsev.c:569-578)."""
     return 0.9 * math.pi / abs(map_coeff * eps_t)
@@ -102,14 +111,21 @@ def _im_bound(q, t0: float, t1: float) -> float:
     return float(1.5 * 0.25 * misc.l2norm2(q, t0, t1))
 
 
-def _contspec_eval(tm, eps_t, xi0, xi1, m, disc):
-    """H11(xi), H21(xi) on the xi grid by chirp-Z (fnft_nsev.c:744-835)."""
-    deg1 = 2.0 / nse.xi_map_coeff(disc)  # = degree * upsampling
-    eps_xi = (xi1 - xi0) / (m - 1)
-    a_pt = complex(np.exp(2j * xi0 * eps_t / deg1))
-    w_pt = complex(np.exp(2j * eps_xi * eps_t / deg1))
-    h = chirpz(tm[:, 0], a_pt, w_pt, m)   # rows (1,1) and (2,1) together
-    return h[0], h[1]
+def _contspec_eval(tm, q_eff, r_eff, eps_t, xi0, xi1, m, disc):
+    """H11(xi), H21(xi) on the xi grid (fnft_nsev.c:744-835): chirp-Z of
+    the transfer polynomials for a fast scheme, the monodromy matrix at
+    every xi for a slow one."""
+    if degree(disc) > 0:
+        deg1 = 2.0 / nse.xi_map_coeff(disc)  # = degree * upsampling
+        eps_xi = (xi1 - xi0) / (m - 1)
+        a_pt = complex(np.exp(2j * xi0 * eps_t / deg1))
+        w_pt = complex(np.exp(2j * eps_xi * eps_t / deg1))
+        h = chirpz(tm[:, 0], a_pt, w_pt, m)   # rows (1,1) and (2,1) together
+        return h[0], h[1]
+    xi = torch.linspace(xi0, xi1, m, dtype=real_dtype_of(q_eff.dtype),
+                        device=q_eff.device)
+    t = scatter_matrix(q_eff, r_eff, xi, eps_t, disc)
+    return t[:, 0, 0], t[:, 1, 0]
 
 
 def _apply_phase_factors(h11, h21, w, eps_t, t0, t1, d_given, xi0, xi1, m,
@@ -197,15 +213,18 @@ def _nsev_base(q_eff, r_eff, q_orig, t0, t1, m, xi0, xi1, kappa, opts,
                bsloc, initial_states, want_contspec, want_dspec):
     """One full pass at a fixed resolution (fnft_nsev_base, :458-565)."""
     disc = opts.discretization
-    d_given = q_eff.shape[-1]
+    d_given = q_eff.shape[-1] // upsampling_factor(disc)
     eps_t = (t1 - t0) / (d_given - 1)
-    tm, w = fscatter(q_eff, r_eff, eps_t, disc,
-                     normalize=opts.normalization_flag,
-                     want=((0, 0), (1, 0)), jsym=kappa)
+    tm = None
+    w = torch.zeros((), dtype=torch.int32, device=q_eff.device)
+    if is_fast(disc):
+        tm, w = fscatter(q_eff, r_eff, eps_t, disc,
+                         normalize=opts.normalization_flag,
+                         want=((0, 0), (1, 0)), jsym=kappa)
 
     result = NsevResult()
     if want_contspec and m > 0:
-        h11, h21 = _contspec_eval(tm, eps_t, xi0, xi1, m, disc)
+        h11, h21 = _contspec_eval(tm, q_eff, r_eff, eps_t, xi0, xi1, m, disc)
         cs = _apply_phase_factors(h11, h21, w, eps_t, t0, t1, d_given,
                                   xi0, xi1, m, disc, opts.contspec_type)
         result.reflection_coefficient = cs.get("rho")
@@ -213,7 +232,8 @@ def _nsev_base(q_eff, r_eff, q_orig, t0, t1, m, xi0, xi1, kappa, opts,
         result.b = cs.get("b")
 
     if kappa == +1 and want_dspec:
-        lam = _compute_boundstates(q_eff, r_eff, q_orig, tm[0, 0], eps_t,
+        lam = _compute_boundstates(q_eff, r_eff, q_orig,
+                                   None if tm is None else tm[0, 0], eps_t,
                                    t0, t1, disc, opts, bsloc, initial_states)
         result.bound_states = lam
         if lam.numel() > 0:
@@ -221,6 +241,54 @@ def _nsev_base(q_eff, r_eff, q_orig, t0, t1, m, xi0, xi1, kappa, opts,
                 q_eff, r_eff, lam, eps_t, t0, t1, disc)
             result.norming_constants = norm
             result.residues = res
+    return result
+
+
+def _richardson(result, q, t0, t1, m, xi0, xi1, kappa, opts, want_dspec):
+    """Richardson extrapolation against a half-resolution pass
+    (fnft_nsev.c:316-442)."""
+    d = q.shape[-1]
+    eps_t = (t1 - t0) / (d - 1)
+    qs_eff, rs_eff, dsub_act, (i0, i1) = nse.preprocess_signal(
+        q, eps_t, kappa, opts.discretization, (d + 1) // 2)
+    ts0, ts1 = t0 + i0 * eps_t, t0 + i1 * eps_t
+    eps_t_sub = (ts1 - ts0) / (dsub_act - 1)
+
+    init = result.bound_states if want_dspec else None
+    sub = _nsev_base(qs_eff, rs_eff, q, ts0, ts1, m, xi0, xi1, kappa, opts,
+                     BoundStateLocalization.NEWTON, init, m > 0,
+                     init is not None and init.numel() > 0)
+
+    scl_num = (eps_t_sub / eps_t) ** method_order(opts.discretization)
+    scl_den = scl_num - 1.0
+
+    def rich(full, half):
+        return (scl_num * full - half) / scl_den
+
+    if m > 0:
+        xi = torch.linspace(xi0, xi1, m, dtype=torch.float64, device=q.device)
+        ok = torch.abs(xi) < 0.9 * math.pi / (2.0 * eps_t_sub)
+        for field in ("reflection_coefficient", "a", "b"):
+            full, half = getattr(result, field), getattr(sub, field)
+            if full is not None and half is not None:
+                setattr(result, field, torch.where(ok, rich(full, half), full))
+
+    full_bs, half_bs = result.bound_states, sub.bound_states
+    if want_dspec and full_bs is not None and full_bs.numel() > 0 \
+            and half_bs is not None and half_bs.numel() > 0:
+        # match each full-resolution state to its nearest half-res partner
+        dist = torch.abs(full_bs[:, None] - half_bs[None, :]) / \
+            torch.abs(full_bs)[:, None]
+        nearest, loc = torch.min(dist, dim=1)
+        ok = nearest < eps_t
+        result.bound_states = torch.where(ok, rich(full_bs, half_bs[loc]),
+                                          full_bs)
+        if result.residues is not None and sub.residues is not None:
+            # Richardson on a' (= b/res), then recombine (reference :426-434)
+            ap_full = result.norming_constants / result.residues
+            ap_half = sub.norming_constants[loc] / sub.residues[loc]
+            ap = torch.where(ok, rich(ap_full, ap_half), ap_full)
+            result.residues = result.norming_constants / ap
     return result
 
 
@@ -251,21 +319,17 @@ def _nsev(q, t_span, m, xi_span, kappa, opts, want_bound_states,
                   "valid XI required for continuous spectrum")
     xi0, xi1 = (float(xi_span[0]), float(xi_span[1])) if xi_span else (0.0, 0.0)
     disc = opts.discretization
-    if not is_fast(disc):
-        raise NotImplementedError(
-            f"slow top-level discretization {disc} is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
-    if opts.richardson_extrapolation:
-        raise NotImplementedError(
-            "Richardson extrapolation is not ported yet (ROADMAP Queue 1 "
-            "item 8)")
+    if not is_fast(disc) and kappa == +1 and want_bound_states:
+        check_arg(opts.bound_state_localization is BoundStateLocalization.NEWTON,
+                  "slow discretizations support only NEWTON localization")
 
     eps_t = (t1 - t0) / (d - 1)
     q_eff, r_eff, _, _ = nse.preprocess_signal(q, eps_t, kappa, disc)
     want_dspec = want_bound_states and kappa == +1
     bsloc = opts.bound_state_localization
 
-    if want_dspec and bsloc is BoundStateLocalization.SUBSAMPLE_AND_REFINE:
+    if (want_dspec and bsloc is BoundStateLocalization.SUBSAMPLE_AND_REFINE
+            and is_fast(disc)):
         # two-pass method: subsampled fast eigenvalues, full-D Newton
         dsub = opts.dsub or int(math.sqrt(d * math.log2(d) ** 2))
         qs_eff, rs_eff, _, (i0, i1) = nse.preprocess_signal(
@@ -274,14 +338,20 @@ def _nsev(q, t_span, m, xi_span, kappa, opts, want_bound_states,
         sub = _nsev_base(qs_eff, rs_eff, q, ts0, ts1, 0, xi0, xi1, kappa,
                          opts, BoundStateLocalization.FAST_EIGENVALUE, None,
                          False, True)
-        return _nsev_base(q_eff, r_eff, q, t0, t1, m, xi0, xi1, kappa,
-                          opts, BoundStateLocalization.NEWTON,
-                          sub.bound_states, m > 0, True)
-    if bsloc is BoundStateLocalization.NEWTON and initial_states is None:
-        raise ValueError("NEWTON localization needs initial bound states; use "
-                         "nsev_with_initial_states or SUBSAMPLE_AND_REFINE")
-    return _nsev_base(q_eff, r_eff, q, t0, t1, m, xi0, xi1, kappa, opts,
-                      bsloc, initial_states, m > 0, want_dspec)
+        result = _nsev_base(q_eff, r_eff, q, t0, t1, m, xi0, xi1, kappa,
+                            opts, BoundStateLocalization.NEWTON,
+                            sub.bound_states, m > 0, True)
+    else:
+        if bsloc is BoundStateLocalization.NEWTON and initial_states is None:
+            raise ValueError(
+                "NEWTON localization needs initial bound states; use "
+                "nsev_with_initial_states or SUBSAMPLE_AND_REFINE")
+        result = _nsev_base(q_eff, r_eff, q, t0, t1, m, xi0, xi1, kappa, opts,
+                            bsloc, initial_states, m > 0, want_dspec)
+    if opts.richardson_extrapolation:
+        result = _richardson(result, q, t0, t1, m, xi0, xi1, kappa, opts,
+                             want_dspec)
+    return result
 
 
 def nsev(q, t_span, *, m: int = 0, xi_span=None, kappa: int = +1,

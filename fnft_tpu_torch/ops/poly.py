@@ -78,7 +78,8 @@ def _matpoly_product(b: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     length = next_fft_length(2 * c - 1)
     fa = torch.fft.fft(a, n=length, dim=-1)
     fb = torch.fft.fft(b, n=length, dim=-1)
-    return torch.fft.ifft(_mat2x2_mul(fb, fa), dim=-1)[..., : 2 * c - 1]
+    out = torch.fft.ifft(_mat2x2_mul(fb, fa), dim=-1)[..., : 2 * c - 1]
+    return out if a.is_complex() else out.real
 
 
 def _tree_level_2x2(p: torch.Tensor, w, normalize: bool):
@@ -249,6 +250,79 @@ def _value_exit_sym(Vc, tc, cc, kappa: int, want=None):
                                Vc.dtype, Vc.device, want)
 
 
+# ---------------------------------------------------------------------------
+# Real-coefficient value-space levels (fnft_tpu poly.py:337-431). KdV: r = -1
+# and a real potential give transfer matrices with all-real coefficients,
+# closed under products, so every value grid is conjugate-symmetric and the
+# tree carries only bins 0..N/2 (rfft layout). The even bins of the doubled
+# grid are pointwise products of the carried halves; the odd bins cost one
+# irfft and two rffts per factor (x * w_{2N}^j splits into the two real
+# sequences x cos and x sin).
+# ---------------------------------------------------------------------------
+
+def _value_enter_real(p: torch.Tensor):
+    """Real coefficients ``[..., n, 2, 2, N+1]`` -> half-grid values
+    ``(V [..., N/2+1], t)``, t the (real) z^N coefficient."""
+    t = p[..., -1]
+    V = torch.fft.rfft(p[..., :-1], dim=-1) + t[..., None]
+    return V, t
+
+
+def _value_odd_bins_real(V, t, tw_cos, tw_sin):
+    """Odd-bin evaluations o[k] = p(w_{2N}^{2k+1}) for k = 0..N/2-1; the
+    other half follows from o[N-1-k] = conj(o[k])."""
+    n = 2 * (V.shape[-1] - 1)
+    x = torch.fft.irfft(V, n=n, dim=-1)
+    oc = torch.fft.rfft(x * tw_cos, dim=-1)[..., :-1]
+    osn = torch.fft.rfft(x * tw_sin, dim=-1)[..., :-1]
+    return torch.complex(oc.real + osn.imag, oc.imag - osn.real) - (
+        2.0 * t)[..., None]
+
+
+def _value_level_real(V, t, w, do_norm: bool):
+    """One real-symmetric tree level: N/2+1 half grids -> N+1 half grids."""
+    Va, Vb = V[..., 0::2, :, :, :], V[..., 1::2, :, :, :]
+    ta, tb = t[..., 0::2, :, :], t[..., 1::2, :, :]
+    n = 2 * (V.shape[-1] - 1)
+    ang = torch.arange(n, dtype=t.dtype, device=t.device) * (math.pi / n)
+    tw_cos, tw_sin = torch.cos(ang), torch.sin(ang)
+    even = _mat2x2_mul(Vb, Va)                       # bins 0, 2, .., N
+    odd = _mat2x2_mul(_value_odd_bins_real(Vb, tb, tw_cos, tw_sin),
+                      _value_odd_bins_real(Va, ta, tw_cos, tw_sin))
+    # out[2m] = even[m] (m <= N/2), out[2m+1] = odd[m] (m < N/2)
+    odd = torch.cat([odd, torch.zeros_like(odd[..., :1])], dim=-1)
+    V_out = _interleave(even, odd)[..., : n + 1]
+    t_out = _mat2x2_mul(tb[..., None], ta[..., None])[..., 0]
+    if w is not None:
+        w = w[..., 0::2] + w[..., 1::2]
+    if do_norm:
+        # the bins not carried are conjugates of carried ones: same maximum
+        max_abs = torch.maximum(torch.abs(V_out).amax(dim=(-3, -2, -1)),
+                                torch.abs(t_out).amax(dim=(-2, -1)))
+        a_exp = _floor_log2(max_abs)
+        scale = _pow2(-a_exp, max_abs.dtype)
+        V_out = V_out * scale[..., None, None, None]
+        t_out = t_out * scale[..., None, None]
+        w = w + a_exp if w is not None else a_exp
+    return V_out, t_out, w
+
+
+def _value_exit_real(V, t, cdt, want=None):
+    """Half-grid values -> complex-typed coefficients ``[..., 2, 2, N+1]``
+    (mathematically real); entries outside ``want`` are zero."""
+    n = 2 * (V.shape[-1] - 1)
+    want = want or _ALL_ENTRIES
+    Vs = torch.stack([V[..., i, j, :] for i, j in want], dim=-2)
+    ts = torch.stack([t[..., i, j] for i, j in want], dim=-1)
+    qs = torch.fft.irfft(Vs, n=n, dim=-1)
+    qs[..., 0] -= ts
+    qs = torch.cat([qs, ts[..., None]], dim=-1)
+    out = torch.zeros(V.shape[:-3] + (2, 2, n + 1), dtype=cdt, device=V.device)
+    for k, (i, j) in enumerate(want):
+        out[..., i, j, :] = qs[..., k, :]
+    return out
+
+
 def _pad_to_power_of_2_2x2(p: torch.Tensor):
     """Pad a matrix stack with identity (constant-1 polynomial) matrices."""
     n = p.shape[-4]
@@ -263,7 +337,7 @@ def _pad_to_power_of_2_2x2(p: torch.Tensor):
 
 
 def fmult2x2_tree(p: torch.Tensor, *, normalize: bool = True, want=None,
-                  jsym: int | None = None):
+                  jsym: int | None = None, rsym: bool = False):
     """Multiply a stack of 2x2 polynomial matrices via a log-depth FFT tree.
 
     Args:
@@ -274,6 +348,11 @@ def fmult2x2_tree(p: torch.Tensor, *, normalize: bool = True, want=None,
       jsym: +1/-1 asserts the J-involution symmetry of every input matrix
         (NSE with r = -jsym conj(q)); with n a power of two the value-space
         levels then carry only the first matrix column.
+      rsym: asserts every input coefficient is real (KdV: r = -1 with a
+        real potential). The direct levels then run in real arithmetic and
+        the value-space levels carry conjugate-symmetric half grids; the
+        result still comes back in the complex dtype of ``p``. Takes
+        precedence over ``jsym`` and skips the fused kernel.
 
     The first ``FUSED_LEVELS`` levels go to the fused kernel
     (:func:`fnft_tpu_torch.ops.kernels.fused_tree_levels`, plain version on
@@ -285,12 +364,15 @@ def fmult2x2_tree(p: torch.Tensor, *, normalize: bool = True, want=None,
     """
     n = p.shape[-4]
     deg_in = p.shape[-1] - 1
+    cdt_in = complex_dtype_of(p)
     p, _ = _pad_to_power_of_2_2x2(p)
+    if rsym:
+        p = p.real
     n_pad = p.shape[-4]
     levels = int(math.log2(n_pad)) if n_pad > 1 else 0
 
     fuse = FUSED_LEVELS
-    if (deg_in + 1 <= 4 and levels > fuse
+    if (not rsym and deg_in + 1 <= 4 and levels > fuse
             and n_pad % ((1 << fuse) * 128) == 0):
         p, w = fused_tree_levels(p.contiguous(), fuse, normalize=normalize)
         levels -= fuse
@@ -311,7 +393,13 @@ def fmult2x2_tree(p: torch.Tensor, *, normalize: bool = True, want=None,
         p, w = _tree_level_2x2(p, w, _do_norm(lv))
         lv += 1
     if levels - lv >= 2:
-        if jsym in (1, -1) and n == n_pad:
+        if rsym and (p.shape[-1] - 1) % 2 == 0:
+            V, t = _value_enter_real(p)
+            while lv < levels:
+                V, t, w = _value_level_real(V, t, w, _do_norm(lv))
+                lv += 1
+            p = _value_exit_real(V, t, cdt_in, want=want)
+        elif jsym in (1, -1) and n == n_pad and not rsym:
             Vc, tc, cc = _value_enter_sym(p)
             while lv < levels:
                 Vc, tc, cc, w = _value_level_sym(Vc, tc, cc, w, jsym,
@@ -334,13 +422,55 @@ def fmult2x2_tree(p: torch.Tensor, *, normalize: bool = True, want=None,
                 mask[i, j, 0] = True
             p = torch.where(mask, p, 0.0)
     # identity padding contributes degree 0; true degree is n*deg_in
-    result = p[..., 0, :, :, : n * deg_in + 1]
+    result = p[..., 0, :, :, : n * deg_in + 1].to(cdt_in)
     if w is None:
         w_out = torch.zeros(result.shape[:-3], dtype=torch.int32,
                             device=p.device)
     else:
         w_out = w[..., 0]
     return result, w_out
+
+
+def fmult2x2(p: torch.Tensor, *, normalize: bool = True):
+    """Alias of :func:`fmult2x2_tree` (reference name: poly_fmult2x2)."""
+    return fmult2x2_tree(p, normalize=normalize)
+
+
+def fmult(p: torch.Tensor, *, normalize: bool = True):
+    """Scalar version: multiply ``[..., n, deg+1]`` polynomials.
+
+    Returns (result ``[..., n*deg+1]``, w) with the normalization semantics
+    of :func:`fmult2x2_tree` (reference: poly_fmult).
+    """
+    n = p.shape[-2]
+    deg_in = p.shape[-1] - 1
+    n_pad = next_power_of_2(n)
+    if n_pad != n:
+        ones = torch.zeros(p.shape[:-2] + (n_pad - n, p.shape[-1]),
+                           dtype=p.dtype, device=p.device)
+        ones[..., 0] = 1.0
+        p = torch.cat([p, ones], dim=-2)
+    w = torch.zeros(p.shape[:-1], dtype=torch.int32,
+                    device=p.device) if normalize else None
+    while p.shape[-2] > 1:
+        c = p.shape[-1]
+        length = next_fft_length(2 * c - 1)
+        fa = torch.fft.fft(p[..., 0::2, :], n=length, dim=-1)
+        fb = torch.fft.fft(p[..., 1::2, :], n=length, dim=-1)
+        prod = torch.fft.ifft(fa * fb, dim=-1)[..., : 2 * c - 1]
+        if not p.is_complex():
+            prod = prod.real
+        if w is not None:
+            mx = torch.abs(prod).amax(dim=-1)
+            a_exp = _floor_log2(mx)
+            prod = prod * _pow2(-a_exp, mx.dtype)[..., None]
+            w = w[..., 0::2] + w[..., 1::2] + a_exp
+        p = prod
+    result = p[..., 0, : n * deg_in + 1]
+    if w is None:
+        return result, torch.zeros(result.shape[:-1], dtype=torch.int32,
+                                   device=p.device)
+    return result, w[..., 0]
 
 
 # ---------------------------------------------------------------------------
@@ -391,3 +521,45 @@ def chirpz(coeffs: torch.Tensor, a: complex, w: complex, m: int):
     x = coeffs.to(cdt) * x_weight
     conv = torch.fft.ifft(torch.fft.fft(x, n=length, dim=-1) * v_f, dim=-1)
     return conv[..., :m] * out_weight
+
+
+# ---------------------------------------------------------------------------
+# Horner evaluation
+# ---------------------------------------------------------------------------
+
+def poly_eval(coeffs: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Evaluate p at points z (ascending coefficients, Horner).
+
+    For |z| > 1 the reversed form p(z) = z^deg q(1/z) is used for
+    stability (reference: fnft__poly_eval.c:25-91).
+    """
+    return poly_evalderiv(coeffs, z, with_derivative=False)[0]
+
+
+def poly_evalderiv(coeffs: torch.Tensor, z: torch.Tensor, *,
+                   with_derivative: bool = True):
+    """Evaluate (p(z), p'(z)) at a vector of points (p' is None without
+    ``with_derivative``)."""
+    cdt = torch.promote_types(complex_dtype_of(coeffs), complex_dtype_of(z))
+    coeffs, z = coeffs.to(cdt), z.to(cdt)
+    deg = coeffs.shape[-1] - 1
+    inside = torch.abs(z) <= 1.0
+    x = torch.where(inside, z, 1.0 / torch.where(z == 0, 1.0, z))
+
+    def horner(cs):
+        # from the highest coefficient downward, tracking p and p'
+        pv, dv = torch.zeros_like(x), torch.zeros_like(x)
+        for ck in cs.flip(-1):
+            dv = dv * x + pv
+            pv = pv * x + ck
+        return pv, dv
+
+    p_in, dp_in = horner(coeffs)            # valid when |z| <= 1
+    p_rev, dp_rev = horner(coeffs.flip(-1))  # q(1/z), q'(1/z)
+    zo = torch.where(inside, 1.0, z)
+    p = torch.where(inside, p_in, zo ** deg * p_rev)
+    if not with_derivative:
+        return p, None
+    # p'(z) = deg z^{deg-1} q(1/z) - z^{deg-2} q'(1/z) for the reversed form
+    dp_out = deg * zo ** (deg - 1) * p_rev - zo ** (deg - 2) * dp_rev
+    return p, torch.where(inside, dp_in, dp_out)

@@ -1,7 +1,8 @@
 """Analytic NFT test cases with exact spectra (numpy-only).
 
 A copy of ``fnft_tpu/testcases.py``; ``nsev_errors`` also takes the torch
-tensors the port returns, on any device.
+tensors the port returns, on any device. The KdV cases at the end are the
+ones the reference's kdvv tests build.
 
 Port of the reference's testcase generators that are compiled into the
 library itself (src/private/fnft__nsev_testcases.c:32-822,
@@ -283,3 +284,58 @@ def nsev_errors(result, data: NsevTestData) -> dict:
                 errs["residues"] = _rel(
                     _host(result.residues)[idx], data.residues)
     return errs
+
+
+# ---------------------------------------------------------------------------
+# KdV cases (reference src/private/fnft__kdvv_testcases.c), exact spectra
+# from their closed forms
+# ---------------------------------------------------------------------------
+
+def kdvv_sech_case(d: int, m: int = 16):
+    """Squared-sech potential 3.2 sech^2(t) (Trogdon et al. 2012 / Drazin &
+    Johnson) on D samples: (u, t_span, xi_span, exact rho on the m-point
+    xi grid; the reference's tests take m = 16)."""
+    import scipy.special as sp
+
+    a_amp = 3.2
+    t_span = (-16.0, 15.0)
+    u = a_amp / np.cosh(np.linspace(*t_span, d)) ** 2
+    xi_span = (-71.0 / 20.0, 79.0 / 20.0)
+    xi = np.linspace(*xi_span, m)
+    s = np.sqrt(a_amp + 0.25)
+    at = 0.5 - 1j * xi + s
+    bt = 0.5 - 1j * xi - s
+    ct = 1.0 - 1j * xi
+    a_of = sp.gamma(at) * sp.gamma(bt) / (sp.gamma(ct) * sp.gamma(at + bt - ct))
+    rho = a_of * sp.gamma(ct) * sp.gamma(ct - at - bt) / (
+        sp.gamma(ct - at) * sp.gamma(ct - bt))
+    return u, t_span, xi_span, rho
+
+
+def kdvv_rect_case(d: int, ampl: float):
+    """Osborne's rectangular well/barrier of height ``ampl`` on |t| < 1/2:
+    (u, t_span, xi_span, exact rho at m = 16)."""
+    t_span = (-1.0, 2.0)
+    t = np.linspace(*t_span, d)
+    u = np.where(np.abs(t) < 0.5, float(ampl), 0.0)
+    u = np.where(np.abs(t) == 0.5, ampl / 2.0, u)
+    zeta = np.arange(16) * np.pi / 32.0
+    xi_span = (0.0, 15.0 / 32.0 * np.pi)
+    ell = 0.5
+    with np.errstate(divide="ignore", invalid="ignore"):
+        kap = np.sqrt(ampl + zeta.astype(complex) ** 2)
+        gam = (kap / zeta - zeta / kap) / 2.0
+        dlt = (kap / zeta + zeta / kap) / 2.0
+        tr = np.exp(-2j * zeta * ell) / (np.cos(2 * kap * ell)
+                                         - 1j * dlt * np.sin(2 * kap * ell))
+        rho = 1j * gam * np.sin(2 * kap * ell) * tr
+    rho[0] = -1.0  # limit value at zeta = 0
+    return u, t_span, xi_span, rho
+
+
+def kdvv_poschl_teller_case(d: int, s: float):
+    """Poeschl-Teller potential s(s+1) sech^2(t) on (-20, 20): (u, t_span,
+    exact kappa_n = s - n of the bound states zeta_n = i kappa_n)."""
+    t_span = (-20.0, 20.0)
+    u = s * (s + 1) / np.cosh(np.linspace(*t_span, d)) ** 2
+    return u, t_span, np.array([s - n for n in range(int(np.ceil(s)))])

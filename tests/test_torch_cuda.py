@@ -1,5 +1,5 @@
-"""The CUDA kernels of the PyTorch port against their plain versions, on
-the card. These tests import no jax, so they run where the port runs:
+"""The CUDA kernels of the PyTorch port against their plain versions, and
+the port on the card against the port on the CPU. These tests import no jax, so they run where the port runs:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -124,3 +124,80 @@ def test_repulsion_kernel_bitwise_reproducible(cuda_device, deg, m):
     second = kernels.repulsion_sum(z_all, z_t, idx)
     torch.cuda.synchronize()
     assert torch.equal(torch.view_as_real(first), torch.view_as_real(second))
+
+
+def _sech_coeffs(scheme, d, device):
+    """Transfer matrices of the Satsuma-Yajima sech on D samples."""
+    from fnft_tpu_torch.ops import fscatter as fs
+    from fnft_tpu_torch.testcases import NsevTestcase, nsev_testcase
+
+    data = nsev_testcase(NsevTestcase.SECH_FOCUSING, d)
+    q = torch.as_tensor(data.q).to(device)
+    eps_t = (data.t_span[1] - data.t_span[0]) / (d - 1)
+    return fs.transfer_matrix_coeffs(q, -torch.conj(q), eps_t,
+                                     fs.Discretization[scheme]).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme,c", [("SPLIT2A", 2), ("SPLIT3A", 4)])
+def test_fused_levels_kernel_on_real_coefficient_stacks(cuda_device, scheme,
+                                                        c):
+    """K1 at 2 and 4 coefficients on what nsev feeds it at D = 2^16 (half
+    the entries of a degree-1 stack are exact zeros)."""
+    p = _sech_coeffs(scheme, 1 << 16, cuda_device)
+    assert tuple(p.shape) == (1 << 16, 2, 2, c)
+    got, w = kernels.fused_tree_levels(p, 2, normalize=True)
+    ref, w_ref = kernels.fused_tree_levels_plain(p, 2, normalize=True)
+    torch.cuda.synchronize()
+    assert torch.equal(w, w_ref)
+    assert _rel(got, ref) < 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [9000, 173])
+def test_repulsion_kernel_on_an_active_set(cuda_device, m):
+    """K2 at [deg, m] with m < deg, deg = 18724 (the sub pass of D = 2^18):
+    the shape of the deflated Aberth sweeps."""
+    deg = 18724
+    rng = np.random.default_rng(m)
+    z_all = torch.as_tensor(np.exp(2j * np.pi * rng.random(deg)) * (
+        1 + 0.01 * rng.normal(size=deg))).to(cuda_device)
+    idx = torch.as_tensor(np.sort(rng.choice(deg, size=m, replace=False))
+                          .astype(np.int32)).to(cuda_device)
+    z_t = z_all[idx.long()]
+    got = kernels.repulsion_sum(z_all, z_t, idx)
+    torch.cuda.synchronize()
+    assert _rel(got, kernels.repulsion_sum_plain(z_all, z_t, idx)) < 1e-5
+    assert _rel(got, _oracle(z_all, z_t, idx)) < 1e-5
+
+
+@pytest.mark.cuda
+def test_kdvv_equal_on_card_and_cpu(cuda_device):
+    import fnft_tpu_torch as ft
+    from fnft_tpu_torch.testcases import kdvv_sech_case
+
+    u, t_span, xi_span, _ = kdvv_sech_case(4096, 64)
+    for arg in (u, u + 0j):     # real-coefficient and generic tree
+        on_card = ft.kdvv(arg, t_span, m=64, xi_span=xi_span)
+        on_cpu = ft.kdvv(arg, t_span, m=64, xi_span=xi_span, device="cpu")
+        assert on_card.reflection_coefficient.device.type == "cuda"
+        assert _rel(on_card.reflection_coefficient.cpu(),
+                    on_cpu.reflection_coefficient) < 1e-10
+
+
+@pytest.mark.cuda
+def test_slow_scheme_nsev_equal_on_card_and_cpu(cuda_device):
+    import fnft_tpu_torch as ft
+    from fnft_tpu_torch.testcases import NsevTestcase, nsev_testcase
+
+    data = nsev_testcase(NsevTestcase.SECH_FOCUSING2, 512)
+    opts = ft.NsevOpts(discretization=ft.Discretization.CF4_2,
+                       contspec_type=ft.ContspecType.BOTH,
+                       discspec_type=ft.DiscspecType.BOTH)
+    res = [ft.nsev_with_initial_states(
+        data.q, data.t_span, data.bound_states, m=data.m,
+        xi_span=data.xi_span, opts=opts, device=device)
+        for device in ("cuda", "cpu")]
+    for field, val in vars(res[0]).items():
+        assert val.device.type == "cuda"
+        assert _rel(val.cpu(), getattr(res[1], field)) < 1e-10, field
