@@ -15,9 +15,19 @@ and 2SPLIT8B at D = 2^16 (K1 at 2, 3 and 4 coefficients), the rows of the
 reference's test table (fast, slow and Richardson) at their own sizes, a
 slow scheme (CF4_2) at D = m = 4096, the full spectrum at D = 2^18, where
 the Aberth sweeps deflate and K2 runs on the roots still moving, and kdvv
-with its real-coefficient tree. While the paths run, the inputs of each
-kernel's first launch at every distinct shape are kept, and at the end the
-kernel is held against its plain version on each of them. Any failure
+with its real-coefficient tree. Then the periodic nsep: every row of the
+reference's tests, and the plane wave at D = 2^16 (2SPLIT4B) and 2^18
+(2SPLIT2A), where K1 runs in the grid search's and the subsampled tree and
+K2 on the batched Aberth rows (the D = 2^18 grid search once more on CPU
+tensors, a second witness of the real points it misses); and the inverse:
+every case of the
+reference's tests, fscatter -> finvscatter at D = 2^16 with the peel's
+sub-blocks as CUDA graphs (and once eagerly), and an nsev -> nsev_inverse
+round trip with bound states at D = 2^16. Each such run prints its errors,
+three warm wall times, its launches and its peak device memory. While the
+paths run, the inputs of each kernel's first launch at every distinct
+shape (and transform) are kept, and at the end the kernel is held against
+its plain version on each of them. Any failure
 raises and exits non-zero. The second line from the end is a JSON record of
 the kernels at those shapes: the path that gave the shape, launches at it
 in one run of that path, device time of the kernel and of its plain
@@ -223,6 +233,7 @@ class KernelSpy:
         self.kept = {}     # key -> {"args", "kwargs", "path", "launches"}
         self.counts = {}   # key -> launches since begin()
         self.path = None
+        self.tag = ""      # "" for nsev and kdvv, else the transform's name
 
     def install(self) -> None:
         self.poly.fused_tree_levels = self._spied(
@@ -240,7 +251,7 @@ class KernelSpy:
                 shape = tuple(args[0].shape)
             else:
                 shape = (args[0].shape[0], args[1].shape[0])
-            key = (name, shape)
+            key = (name, shape, self.tag)
             self.counts[key] = self.counts.get(key, 0) + 1
             if key not in self.kept:
                 self.kept[key] = {
@@ -250,9 +261,12 @@ class KernelSpy:
             return wrapper(*args, **kwargs)
         return call
 
-    def begin(self, path: str) -> None:
-        """Start of one run of the path ``path``: every count to 0."""
-        self.path, self.counts = path, {}
+    def begin(self, path: str, tag: str = "") -> None:
+        """Start of one run of the path ``path``: every count to 0. Shapes
+        are kept apart by ``tag`` too, so that a transform (nsep, the
+        inverse) has its own inputs at a shape an earlier path also gave
+        the kernel."""
+        self.path, self.tag, self.counts = path, tag, {}
         self.kernels.reset_launches()
 
     def end(self) -> dict:
@@ -272,8 +286,8 @@ class KernelSpy:
         """Launches of ``name`` in the last run, by shape."""
         return {key[1]: n for key, n in self.counts.items() if key[0] == name}
 
-    def launches(self, name: str, shape) -> int:
-        return self.kept[(name, tuple(shape))]["launches"]
+    def launches(self, name: str, shape, tag: str = "") -> int:
+        return self.kept[(name, tuple(shape), tag)]["launches"]
 
 
 def k1_record(kernels, torch, p, normalize, launches, path,
@@ -369,8 +383,9 @@ def records_of_kept(spy, torch, done) -> list:
     shape's launches in the run of the path where it was first seen.
     Shapes in ``done`` have their record already and are compared only."""
     recs = []
-    for (name, shape), kept in spy.kept.items():
-        timed = (name, shape) not in done
+    for key, kept in spy.kept.items():
+        name, shape, _ = key
+        timed = key not in done
         if name == "fused_tree_levels":
             p, levels = kept["args"]
             check(levels == 2, f"K1 {kept['path']}: {levels} levels")
@@ -402,30 +417,43 @@ def nsev_call(ft, torch, dev, d, bound_states, scheme="SPLIT4B"):
                                  want_bound_states=bound_states)
 
 
-def run_nsev(ft, spy, torch, dev, d, *, bound_states=True, warm=1,
-             scheme="SPLIT4B"):
-    """A cold run, then ``warm`` warm runs of nsev on the sech at D samples,
-    each with the launch counts set to 0 just before it; returns (errors,
-    warm seconds, launch counts of the first warm run, result)."""
-    from fnft_tpu_torch.testcases import nsev_errors
-
-    data, call = nsev_call(ft, torch, dev, d, bound_states, scheme)
-    path = f"{scheme} D={d}"
-    spy.begin(path)
+def drive(spy, torch, path, call, tag="", warm=3):
+    """A cold call, then ``warm`` warm calls of ``call`` on the card, each
+    with the launch counts set to 0 just before it and read just after.
+    Returns (result of the last call, cold seconds, warm seconds, launches
+    of the first warm call (of the cold call when ``warm`` is 0), peak
+    device MiB over the warm calls)."""
+    spy.begin(path, tag)
     t0 = time.perf_counter()
-    call()
+    res = call()
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
-    spy.end()
-    walls, launches = [], None
-    for _ in range(warm):
-        spy.begin(path)
+    launches = spy.end()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(warm):
+        spy.begin(path, tag)
         t0 = time.perf_counter()
         res = call()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         counted = spy.end()
-        launches = launches or counted
+        if i == 0:
+            launches = counted
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    return res, cold, walls, launches, peak
+
+
+def run_nsev(ft, spy, torch, dev, d, *, bound_states=True, warm=1,
+             scheme="SPLIT4B"):
+    """A cold run, then ``warm`` warm runs of nsev on the sech at D samples
+    (:func:`drive`); returns (errors, warm seconds, launch counts of the
+    first warm run, result)."""
+    from fnft_tpu_torch.testcases import nsev_errors
+
+    data, call = nsev_call(ft, torch, dev, d, bound_states, scheme)
+    res, cold, walls, launches, _ = drive(spy, torch, f"{scheme} D={d}",
+                                          call, warm=warm)
     errs = nsev_errors(res, data)
     n_bs = None if res.bound_states is None else int(res.bound_states.numel())
     print(f"nsev {scheme} D={d}: cold {cold:.4f} s, warm "
@@ -557,16 +585,16 @@ def table_row(ft, spy, torch, dev, case, scheme, d, seeded, rich, m=None):
     kw = dict(m=m or data.m, xi_span=data.xi_span, kappa=data.kappa,
               opts=opts)
     q = torch.as_tensor(data.q).to(dev)
-    spy.begin(f"{scheme} D={d}{' Richardson' if rich else ''}, {case}")
-    t0 = time.perf_counter()
     if seeded:
-        res = ft.nsev_with_initial_states(q, data.t_span, data.bound_states,
-                                          **kw)
+        def call():
+            return ft.nsev_with_initial_states(q, data.t_span,
+                                               data.bound_states, **kw)
     else:
-        res = ft.nsev(q, data.t_span, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    spy.end()
+        def call():
+            return ft.nsev(q, data.t_span, **kw)
+    res, wall, *_ = drive(spy, torch, f"{scheme} D={d}"
+                          f"{' Richardson' if rich else ''}, {case}", call,
+                          warm=0)
     if m:
         check((m - 1) % 15 == 0, f"m={m} does not hold the tabulated grid")
         for field in ("reflection_coefficient", "a", "b"):
@@ -700,17 +728,13 @@ def kdvv_paths(ft, spy, torch, dev) -> None:
     exact = torch.as_tensor(rho).to(dev)
     opts = ft.KdvvOpts()   # 2SPLIT8B
     for label, arg in (("real", ut), ("complex", ut + 0j)):
-        ft.kdvv(arg, t_span, m=m, xi_span=xi_span, opts=opts)
-        torch.cuda.synchronize()
-        spy.begin(f"kdvv SPLIT8B D={d}, {label} potential")
-        t0 = time.perf_counter()
-        res = ft.kdvv(arg, t_span, m=m, xi_span=xi_span, opts=opts)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = spy.end()
+        res, _, walls, launches, _ = drive(
+            spy, torch, f"kdvv SPLIT8B D={d}, {label} potential",
+            lambda: ft.kdvv(arg, t_span, m=m, xi_span=xi_span, opts=opts),
+            warm=1)
         err = float(rel_err(res.reflection_coefficient, exact))
         print(f"  kdvv 2SPLIT8B D=2^16 m=2^12 {label} potential: error "
-              f"{err:.3e}, warm wall {wall:.4f} s, launches {launches}")
+              f"{err:.3e}, warm wall {walls[0]:.4f} s, launches {launches}")
         check(err <= BOUND_KDVV_SPLIT8B, f"kdvv {label}: {err} > "
               f"{BOUND_KDVV_SPLIT8B}")
         check(launches["fused_tree_levels"] == 0,
@@ -723,11 +747,12 @@ def kdvv_paths(ft, spy, torch, dev) -> None:
     dev_rel = rel_dev(res.reflection_coefficient, rho_real)
     check(dev_rel <= 2e-10, f"kdvv complex vs real route: {dev_rel:.3e}")
     # a complex potential with a narrow scheme does go through K1
-    spy.begin(f"kdvv SPLIT2A D={d}, complex potential")
-    res = ft.kdvv(ut + 0j, t_span, m=m, xi_span=xi_span,
-                  opts=ft.KdvvOpts(discretization=ft.Discretization.SPLIT2A))
-    torch.cuda.synchronize()
-    launches = spy.end()
+    res, _, _, launches, _ = drive(
+        spy, torch, f"kdvv SPLIT2A D={d}, complex potential",
+        lambda: ft.kdvv(ut + 0j, t_span, m=m, xi_span=xi_span,
+                        opts=ft.KdvvOpts(
+                            discretization=ft.Discretization.SPLIT2A)),
+        warm=0)
     err = float(rel_err(res.reflection_coefficient, exact))
     check(launches["fused_tree_levels"] == 1 and err <= 1.37e-4,
           f"kdvv 2SPLIT2A complex: K1 {launches}, error {err}")
@@ -745,6 +770,510 @@ def kdvv_paths(ft, spy, torch, dev) -> None:
               and np.max(np.abs(got - np.sort(kappa))) <= 2e-4,
               f"kdvv_bound_states s={s}: {got} vs {np.sort(kappa)}")
         print(f"  kdvv_bound_states s={s}: {got} ({wall:.3f} s)")
+
+
+def timing(cold, walls, launches, peak) -> str:
+    return (f"cold {cold:.4f} s, warm " + " ".join(f"{t:.4f}" for t in walls)
+            + f" s, launches {launches}, peak {peak:.1f} MiB")
+
+
+NSEP_BOX = (-10.0, 10.0, -10.0, 10.0)
+# rows of tests/test_nsep.py (the reference's test/fnft_nsep/*.c bounds):
+# (testcase, scheme, D, main bound, aux bound, box)
+NSEP_ROWS = [
+    ("plane_wave", "SPLIT2A", 1024, 3.2e-4, 2.9e-4, NSEP_BOX),
+    ("plane_wave", "SPLIT2_MODAL", 1024, 3.5e-4, 3.1e-4, NSEP_BOX),
+    ("plane_wave", "SPLIT4B", 1024, 9.6e-5, 4.4e-5, NSEP_BOX),
+    ("plane_wave", "SPLIT4A", 1024, 6.3e-5, 4.6e-5, NSEP_BOX),
+    ("plane_wave", "SPLIT2A", 1024, 4.5e-5, 4.4e-5, (-10.0, 10.0, 0.1, 10.0)),
+    ("constant", "SPLIT2A", 2048, 7.6e-5, 7.6e-8, NSEP_BOX),
+    ("constant", "SPLIT2_MODAL", 2048, 7.6e-5, 7.6e-8, NSEP_BOX),
+    ("constant", "SPLIT4B", 1024, 7.6e-5, 2.5e-8, NSEP_BOX),
+    ("constant", "SPLIT4A", 512, 7.6e-5, 2.5e-8, NSEP_BOX),
+    ("constant", "SPLIT4A4", 64, 6.8e-4, 1.3e-6, NSEP_BOX),
+    ("plane_wave", "SPLIT4B4", 512, 1.6e-4, 6.1e-7, NSEP_BOX),
+]
+
+
+def nsep_case(name, d, **kw):
+    from fnft_tpu_torch.testcases import (nsep_constant_defocusing_case,
+                                          nsep_plane_wave_case)
+
+    if name == "plane_wave":
+        return nsep_plane_wave_case(d, **kw)
+    return nsep_constant_defocusing_case(d)
+
+
+def nsep_opts(ft, scheme, box=NSEP_BOX, loc="MIXED", **kw):
+    return ft.NsepOpts(filtering=ft.PointFilter.MANUAL, bounding_box=box,
+                       localization=ft.Localization[loc],
+                       discretization=ft.Discretization[scheme], **kw)
+
+
+def nsep_row(ft, spy, torch, dev, name, scheme, d, main_bound, aux_bound,
+             box, warm=3, **kw):
+    """nsep (MIXED, manual box) on a test signal at D samples on the card,
+    held to the row's bounds on the main and auxiliary spectra. Returns
+    the launches of a warm call."""
+    from fnft_tpu_torch.testcases import nsep_errors
+
+    q, t_span, kappa, main, aux, remove_box = nsep_case(name, d, **kw)
+    qt = torch.as_tensor(q).to(dev)
+    opts = nsep_opts(ft, scheme, box)
+    path = f"nsep {scheme} D={d} {name}{' non-real box' if box[2] > 0 else ''}"
+    res, *run = drive(spy, torch, path, lambda: ft.nsep(
+        qt, t_span, kappa=kappa, opts=opts), "nsep", warm)
+    check(res.main_spectrum.device.type == res.aux_spectrum.device.type
+          == dev.type, f"{path}: a spectrum left the card")
+    em, ea = nsep_errors(res, main, aux, box, remove_box)
+    print(f"{path}: main {em:.3e} <= {main_bound}, aux {ea:.3e} <= "
+          f"{aux_bound}; " + timing(*run))
+    if em > main_bound or ea > aux_bound:
+        for label, got, exact in (("main", res.main_spectrum, main),
+                                  ("aux", res.aux_spectrum, aux)):
+            got = got.cpu().numpy()
+            got = got[(np.abs(got.real) <= 10) & (np.abs(got.imag) <= 10)]
+            dist = np.abs(got[:, None] - exact[None, :])
+            far = np.argsort(-dist.min(axis=1))[:4]
+            missed = np.argsort(-dist.min(axis=0))[:4]
+            print(f"  {label}: farthest computed points {got[far].tolist()}, "
+                  f"worst-matched exact points {exact[missed].tolist()} "
+                  f"({dist.min(axis=0)[missed].tolist()})")
+    check(em <= main_bound and ea <= aux_bound,
+          f"{path}: main {em:.3e}, aux {ea:.3e} over the bounds")
+    return run[2]
+
+
+def nsep_reference_rows(ft, spy, torch, dev) -> None:
+    """Every row of tests/test_nsep.py on the card, at its D and within its
+    bounds, and its other checks: spines, the quasi-periodic shift, the
+    complex64 aux certificate, the defocusing main-only call."""
+    for name, scheme, d, mb, ab, box in NSEP_ROWS:
+        nsep_row(ft, spy, torch, dev, name, scheme, d, mb, ab, box)
+    # quasi-periodic: 2 exp(3.5 i t) with phase_shift pi is the plane wave's
+    # spectrum shifted by -0.25 (bound 5e-4 on the main spectrum)
+    from fnft_tpu_torch.testcases import nsep_errors
+
+    q, t_span, kappa, main, aux, remove_box = nsep_case("plane_wave", 1024,
+                                                        nu=3.5)
+    qt = torch.as_tensor(q).to(dev)
+    res, *run = drive(spy, torch, "nsep quasi-periodic D=1024", lambda: ft.nsep(
+        qt, t_span, kappa=kappa, phase_shift=np.pi,
+        opts=nsep_opts(ft, "SPLIT2A")), "nsep")
+    em, _ = nsep_errors(res, main, aux, NSEP_BOX, remove_box)
+    print(f"nsep quasi-periodic D=1024: main {em:.3e} <= 5e-4; "
+          + timing(*run))
+    check(em <= 5e-4, f"quasi-periodic: {em:.3e}")
+    # spines: 5 points per spine give more points, off the axis on Re = -1.5
+    q, t_span, *_ = nsep_case("plane_wave", 512)
+    qt = torch.as_tensor(q).to(dev)
+    counts = {}
+    for n in (2, 5):
+        res, *run = drive(spy, torch, f"nsep spines {n} D=512", lambda: ft.nsep(
+            qt, t_span, want_aux=False, opts=nsep_opts(
+                ft, "SPLIT2A", loc="SUBSAMPLE_AND_REFINE",
+                points_per_spine=n)), "nsep")
+        check(res.aux_spectrum is None, "spines: aux spectrum not asked for")
+        counts[n] = res.main_spectrum.numel()
+        print(f"nsep spines {n} points D=512: {counts[n]} points; "
+              + timing(*run))
+    # off the real axis (|Im| > 0.05, as tests/test_nsep.py) the spine
+    # points lie on Re = -1.5
+    sp = res.main_spectrum.cpu().numpy()
+    off = sp[np.abs(sp.imag) > 0.05]
+    off_axis = float(np.max(np.abs(off.real + 1.5)))
+    near = sp[np.abs(sp + 1.5) < 0.05]
+    print(f"  spine points off the axis: |Re + 1.5| <= {off_axis:.3e}; "
+          f"within 0.05 of the crossing -1.5: {near.tolist()}")
+    check(counts[5] > 1.5 * counts[2] and off_axis < 1e-3,
+          f"spines: {counts}, off-axis |Re + 1.5| {off_axis:.3e}: "
+          f"{off[np.abs(off.real + 1.5) >= 1e-3].tolist()}")
+    # complex64: the aux certificate in complex64's eps keeps the aux roots
+    q, t_span, *_ = nsep_case("plane_wave", 256)
+    qt = torch.as_tensor(q.astype(np.complex64)).to(dev)
+    res, *run = drive(spy, torch, "nsep complex64 D=256", lambda: ft.nsep(
+        qt, t_span, opts=nsep_opts(ft, "SPLIT2A", (-5.0, 5.0, -5.0, 5.0),
+                                   "SUBSAMPLE_AND_REFINE")), "nsep")
+    j = np.arange(1, 50)
+    aux_e = -1.5 + 1j * np.concatenate([np.sqrt(4 - j * j / 4.0 + 0j),
+                                        -np.sqrt(4 - j * j / 4.0 + 0j)])
+    aux_e = aux_e[(np.abs(aux_e.real) < 5) & (np.abs(aux_e.imag) < 5)]
+    aux = res.aux_spectrum.cpu().numpy()
+    err = max(float(np.min(np.abs(aux - e))) if aux.size else np.inf
+              for e in aux_e if abs(e.imag) > 0.3)
+    print(f"nsep complex64 D=256: {aux.size} aux points, error {err:.3e} "
+          f"< 5e-3; " + timing(*run))
+    check(res.aux_spectrum.dtype == torch.complex64 and err < 5e-3,
+          f"complex64: {res.aux_spectrum.dtype}, aux error {err:.3e}")
+    ones = torch.ones(64, dtype=torch.complex128, device=dev)
+    res, *run = drive(spy, torch, "nsep defocusing main only D=64",
+                      lambda: ft.nsep(ones, (0.0, 2 * np.pi), kappa=-1,
+                                      want_aux=False), "nsep")
+    check(res.aux_spectrum is None and res.main_spectrum.numel() > 0,
+          "defocusing main-only call")
+    print(f"nsep defocusing, main only, D=64: {res.main_spectrum.numel()} "
+          f"points; " + timing(*run))
+
+
+def nsep_full_width(ft, spy, torch, dev) -> None:
+    """The chirp-Z tables and grid memory at m = 2^23, one call with the
+    default options (AUTO box) at D = 2^16, then the plane wave at D = 2^16
+    (2SPLIT4B, box +-10) and 2^18 (2SPLIT2A, the non-real box; then the
+    whole box), MIXED: grid search on the full-D monodromy polynomial (K1
+    in its tree), subsample-and-refine on Dsub samples (K1 in that tree, K2
+    on the batched rows of degree > 4096), held to the reference's D = 1024
+    bounds for the scheme and box."""
+    from fnft_tpu_torch.models import nsep as nsep_mod
+    from fnft_tpu_torch.ops import gridsearch, poly
+
+    k1, k2 = "fused_tree_levels", "repulsion_sum"
+    # chirp-Z tables of the D = 2^18 grid search (m = 2^23, three rings):
+    # built on the host in extended precision, once per geometry
+    n, m = (1 << 18) + 1, 32 * (1 << 18)
+    phi0, phi1 = sorted(2.0 * (2 * np.pi / (1 << 18)) * b for b in (-10, 10))
+    eps = (phi1 - phi0) / (m - 1)
+    poly._chirpz_tables.cache_clear()
+    t0 = time.perf_counter()
+    for k in (-1, 0, 1):
+        poly._chirpz_tables(complex(np.exp(1j * phi0) / (1.0 + k * eps)),
+                            complex(np.exp(1j * eps)), n, m,
+                            torch.complex128, dev)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    coeffs = torch.randn(n, dtype=torch.complex128, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gridsearch.roots_fftgridsearch(coeffs, phi0=phi0, phi1=phi1, m=m)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    grid_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    print(f"  chirp-Z tables at m=2^23, deg 2^18: {cold:.3f} s cold for the "
+          f"three rings; one grid search with them {warm:.4f} s, "
+          f"{grid_mib:.1f} MiB of device memory above its input")
+    # default options (AUTO box): the box is what the grid resolves, so
+    # Newton refines thousands of candidates, in lambda slices
+    seen = {}
+    orig = nsep_mod._refine_mainspec, nsep_mod._refine_auxspec
+
+    def count(which, fn):
+        def call(q_eff, r_eff, lam0, *args):
+            seen[which] = int(lam0.numel())
+            return fn(q_eff, r_eff, lam0, *args)
+        return call
+
+    nsep_mod._refine_mainspec = count("main", orig[0])
+    nsep_mod._refine_auxspec = count("aux", orig[1])
+    try:
+        q, t_span, *_ = nsep_case("plane_wave", 1 << 16)
+        qt = torch.as_tensor(q).to(dev)
+        res, *run = drive(spy, torch, "nsep default options D=65536",
+                          lambda: ft.nsep(qt, t_span), "nsep", warm=1)
+    finally:
+        nsep_mod._refine_mainspec, nsep_mod._refine_auxspec = orig
+    check(res.main_spectrum.numel() > 0 and res.aux_spectrum.numel() > 0,
+          "default options: empty spectra")
+    print(f"  default options (2SPLIT2A, MIXED, AUTO box) D=2^16: Newton "
+          f"candidates {seen}, {res.main_spectrum.numel()} main and "
+          f"{res.aux_spectrum.numel()} aux points; " + timing(*run))
+    # 2SPLIT2A at D = 2^18 is held to the reference's non-real box and its
+    # bounds (tests/test_nsep.py): its grid of 2^23 points does not always
+    # keep the plane wave's real double points (below)
+    for scheme, d, mb, ab, box, n_full, n_sub, c in (
+            ("SPLIT4B", 1 << 16, 9.6e-5, 4.4e-5, NSEP_BOX, 1 << 16, 4096, 3),
+            ("SPLIT2A", 1 << 18, 4.5e-5, 4.4e-5, NSEP_ROWS[4][5], 1 << 18,
+             1 << 14, 2)):
+        launches = nsep_row(ft, spy, torch, dev, "plane_wave", scheme, d, mb,
+                            ab, box)
+        by_k1, by_k2 = spy.by_shape(k1), spy.by_shape(k2)
+        deg = n_sub * (c - 1)
+        print(f"  K1 by shape {by_k1}, K2 by shape {by_k2}")
+        check((n_full, 2, 2, c) in by_k1 and (n_sub, 2, 2, c) in by_k1,
+              f"nsep {scheme} D={d}: K1 missed a tree: {by_k1}")
+        check(launches[k2] > 0 and set(by_k2) == {(deg, deg)}
+              and by_k2[(deg, deg)] % 3 == 0,
+              f"nsep {scheme} D={d}: K2 {by_k2}, want [{deg}, {deg}] on "
+              f"3 rows")
+    # the same signal in the whole box: each real double point of the plane
+    # wave is a double root of p -+ 2 on the unit circle, which rounding
+    # splits along the circle or off it; off it by more than the grid's
+    # rings (1e-10 apart at m = 2^23), the 3x3 test rejects the point. Every
+    # point found is held to the D = 1024 bounds, the aux spectrum whole; at
+    # most one real point may be missed, and the same grid search on CPU
+    # tensors, on the polynomials of this run, misses the same points.
+    from fnft_tpu_torch.models.discretization import z_to_lambda
+    from fnft_tpu_torch.testcases import nsep_errors
+    from fnft_tpu_torch.utils.misc import compact_masked
+
+    d = 1 << 18
+    q, t_span, kappa, main, aux, remove_box = nsep_case("plane_wave", d)
+    qt = torch.as_tensor(q).to(dev)
+    grids, orig = [], nsep_mod.roots_fftgridsearch
+
+    def kept(coeffs, **kw):
+        grids.append((coeffs.clone(), kw))
+        return orig(coeffs, **kw)
+
+    nsep_mod.roots_fftgridsearch = kept
+    try:
+        res, wall, *_ = drive(spy, torch, f"nsep SPLIT2A D={d} plane_wave "
+                              "whole box", lambda: ft.nsep(
+                                  qt, t_span, opts=nsep_opts(ft, "SPLIT2A")),
+                              "nsep", warm=0)
+    finally:
+        nsep_mod.roots_fftgridsearch = orig
+    em, ea = nsep_errors(res, main, aux, NSEP_BOX, remove_box)
+    keep = ((np.abs(main.real) <= 10) & (np.abs(main.imag) <= 10)
+            & ~((np.abs(main.real + 1.5) < 0.1) & (np.abs(main.imag) < 0.1)))
+
+    def missed_of(pts, exact):
+        dist = np.abs(pts[:, None] - exact[None, :])
+        return exact[dist.min(axis=0) > 3.2e-4], dist
+
+    got = res.main_spectrum.cpu().numpy()
+    inside = got[(np.abs(got.real) <= 10) & (np.abs(got.imag) <= 10)
+                 & ~((np.abs(got.real + 1.5) < 0.1) & (np.abs(got.imag) < 0.1))]
+    missed, dist = missed_of(inside, main[keep])
+    stray = float(dist.min(axis=1).max())
+    # the witness: the main half (p + 2, p - 2) of this run's grid search
+    # again on the host's CPU, in the same precision, and the real exact
+    # points it misses (the non-real ones are subsample-and-refine's)
+    t0 = time.perf_counter()
+    on_cpu = [z_to_lambda(compact_masked(*gridsearch.roots_fftgridsearch(
+        coeffs.cpu(), **kw)), 2 * np.pi / d, ft.Discretization.SPLIT2A)
+        for coeffs, kw in grids[:2]]
+    cpu_wall = time.perf_counter() - t0
+    on_cpu = torch.cat(on_cpu).numpy()
+    missed_cpu, _ = missed_of(on_cpu[np.abs(on_cpu.imag) < 1e-3],
+                              main[keep & (main.imag == 0)])
+    print(f"nsep SPLIT2A D=2^18 whole box: main {em:.3e} (farthest computed "
+          f"point {stray:.3e} from an exact one; exact points missed: "
+          f"{missed.tolist()}), aux {ea:.3e}; {wall:.4f} s. The same grid "
+          f"search on CPU tensors misses the real points "
+          f"{missed_cpu.tolist()} ({cpu_wall:.1f} s)")
+    check(stray <= 3.2e-4 and ea <= 2.9e-4 and missed.size <= 1
+          and np.all(missed.imag == 0)
+          and np.array_equal(np.sort_complex(missed),
+                             np.sort_complex(missed_cpu)),
+          f"nsep SPLIT2A D=2^18 whole box: stray {stray:.3e}, aux {ea:.3e}, "
+          f"missed {missed.tolist()} (CPU tensors: {missed_cpu.tolist()})")
+
+
+def inverse_reference_cases(ft, spy, torch, dev) -> None:
+    """Every case of tests/test_nsev_inverse.py on the card, within its
+    bound (the reference's test/fnft_nsev_inverse/*.c)."""
+    from fnft_tpu_torch.utils.misc import rel_err
+
+    q8 = np.array([0.1, 0.1j, 0.2, -0.2, 0.0, 0.05 + 0.05j, -0.03j, 0.06])
+    t8 = (0.0, 7.0)
+    cases = []
+    spy.begin("inverse: forward nsev of the round trips", "inverse")
+    for m, kappa, method, scheme, bound in (
+            (10, +1, "DEFAULT", "SPLIT2A", 0.022),
+            (32, +1, "DEFAULT", "SPLIT2A", 5.3e-8),
+            (10, -1, "DEFAULT", "SPLIT2A", 0.03),
+            (32, -1, "DEFAULT", "SPLIT2A", 0.016),
+            (32, +1, "DEFAULT", "SPLIT2_MODAL", 1e-7),
+            (8, -1, "TFMATRIX_CONTAINS_AB_FROM_ITER", "SPLIT2A", 0.016)):
+        disc = ft.Discretization[scheme]
+        xi = ft.nsev_inverse_xi_grid(8, t8, m, disc)
+        rho = ft.nsev(torch.as_tensor(q8 + 0j).to(dev), t8, m=m, xi_span=xi,
+                      kappa=kappa, opts=ft.NsevOpts(discretization=disc),
+                      want_bound_states=False).reflection_coefficient
+        opts = ft.NsevInverseOpts(
+            discretization=disc,
+            contspec_method=ft.InverseCstMethod[method])
+        cases.append((f"round trip M={m} kappa={kappa} {scheme} {method}",
+                      (rho, xi, 8, t8), dict(kappa=kappa, opts=opts), q8,
+                      bound))
+    a, t0 = 0.45, 1.2
+    t_span = (-25.0, 25.0)
+    t = np.linspace(*t_span, 256)
+    xi_span = ft.nsev_inverse_xi_grid(256, t_span, 256)
+    xi = np.linspace(*xi_span, 256)
+    cases.append(("B(tau) D=256", (
+        1j / (2 * np.pi) * np.sin(np.pi * a) / np.cosh(t - t0), None, 256,
+        t_span), dict(opts=ft.NsevInverseOpts(
+            contspec_type=ft.InverseContspecType.B_OF_TAU)),
+        1j * a / np.cosh(t - t0), 0.0009))
+    cases.append(("b(xi) D=256", (
+        1j * np.exp(-2j * xi * t0) * np.sin(np.pi * a) / np.cosh(np.pi * xi),
+        xi_span, 256, t_span), dict(opts=ft.NsevInverseOpts(
+            contspec_type=ft.InverseContspecType.B_OF_XI)),
+        1j * a / np.cosh(t - t0), 0.0009))
+    a = 2.45
+    t = np.linspace(*t_span, 512)
+    xi_span = ft.nsev_inverse_xi_grid(512, t_span, 512)
+    xi = np.linspace(*xi_span, 512)
+    disc_kw = dict(bound_states=1j * (a - np.arange(2) - 0.5),
+                   normconsts_or_residues=np.array([1j, -1j]))
+    cases.append(("b(xi) with bound states D=512", (
+        1j * np.sin(np.pi * a) / np.cosh(np.pi * xi), xi_span, 512, t_span),
+        dict(opts=ft.NsevInverseOpts(
+            contspec_type=ft.InverseContspecType.B_OF_XI), **disc_kw),
+        1j * a / np.cosh(t), 6.3e-4))
+    cases.append(("B(tau) with bound states D=512", (
+        1j / (2 * np.pi) * np.sin(np.pi * a) / np.cosh(t), None, 512, t_span),
+        dict(opts=ft.NsevInverseOpts(
+            contspec_type=ft.InverseContspecType.B_OF_TAU), **disc_kw),
+        1j * a / np.cosh(t), 6.3e-4))
+    t_span = (-32.0, 32.0)
+    cases.append(("multi-soliton CDT D=4096", (None, None, 4096, t_span),
+                  dict(bound_states=np.array([0.5j, 1.5j, 2.5j, 3.5j, 4.5j]),
+                       normconsts_or_residues=np.array([-1.0, 1, -1, 1, -1]
+                                                       ) + 0j),
+                  5.0 / np.cosh(np.linspace(*t_span, 4096)), 3.2e-10))
+    t_span = (-20.0, 20.0)
+    t = np.linspace(*t_span, 512)
+    bs = np.array([2.5 + 0.9j, 2.5 + 1.9j, 2.5 + 2.9j])
+    nc = np.array([-1.0, 1.0, -1.0]) + 0j
+    res = nc * 2j * bs.imag / np.array([np.prod([
+        (bs[i] - bs[j]) / (bs[i] - np.conj(bs[j])) for j in range(3)
+        if j != i]) for i in range(3)])
+    for dstype, vals in (("NORMING_CONSTANTS", nc), ("RESIDUES", res)):
+        cases.append((f"add-soliton CDT {dstype} D=512",
+                      (None, None, 512, t_span),
+                      dict(bound_states=bs, normconsts_or_residues=vals,
+                           seed_potential=torch.as_tensor(
+                               -0.4 / np.cosh(t) * np.exp(-5j * t)).to(dev),
+                           opts=ft.NsevInverseOpts(
+                               contspec_method=ft.InverseCstMethod
+                               .USE_SEED_POTENTIAL_INSTEAD,
+                               discspec_type=ft.InverseDiscspecType[dstype])),
+                      3.4 / np.cosh(t) * np.exp(-5j * t), 0.0029))
+    d, m = 512, 1024
+    t_span = (-32.0, 32.0)
+    q_exact = 3.4 / np.cosh(np.linspace(*t_span, d)) * np.exp(
+        -4j * np.linspace(*t_span, d))
+    xi_span = ft.nsev_inverse_xi_grid(d, t_span, m)
+    fwd = ft.nsev(torch.as_tensor(q_exact).to(dev), t_span, m=m,
+                  xi_span=xi_span, opts=ft.NsevOpts(
+                      discretization=ft.Discretization.SPLIT4B,
+                      discspec_type=ft.DiscspecType.NORMING_CONSTANTS))
+    check(fwd.bound_states.numel() == 3, "round trip D=512: bound states")
+    spy.end()
+    cases.append(("round trip with bound states D=512",
+                  (fwd.reflection_coefficient, xi_span, d, t_span),
+                  dict(bound_states=fwd.bound_states,
+                       normconsts_or_residues=fwd.norming_constants),
+                  q_exact, 0.014))
+    for label, args, kw, exact, bound_ in cases:
+        if isinstance(args[0], np.ndarray):
+            args = (torch.as_tensor(args[0]).to(dev),) + args[1:]
+        q, *run = drive(spy, torch, f"inverse {label}",
+                        lambda: ft.nsev_inverse(*args, device=dev, **kw),
+                        "inverse")
+        err = float(rel_err(q, torch.as_tensor(exact + 0j).to(dev)))
+        print(f"inverse {label}: error {err:.3e} <= {bound_}; "
+              + timing(*run))
+        check(q.device.type == dev.type and err <= bound_,
+              f"inverse {label}: {err:.3e} on {q.device}")
+
+
+def count_ops(torch, fn) -> int:
+    """Operations the host dispatches during ``fn()`` (every aten call, on
+    the card one kernel launch or a few, views none). A CUDA graph's
+    replay is not dispatched: its kernels do not count here. (The profiler
+    is no counter for this: it traces each kernel of each replay.)"""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    torch.cuda.synchronize()
+    return Count.n
+
+
+def inverse_full_width(ft, spy, torch, dev) -> None:
+    """fscatter(normalize=False) -> finvscatter at D = 2^16 (2SPLIT2A) on
+    1.1i sech(t), held to tests/test_finvscatter_staged.py's bounds; the
+    peel graphed and eager; one nsev -> nsev_inverse round trip with bound
+    states through the seeded CDT at D = 2^16."""
+    from fnft_tpu_torch.ops import finvscatter as fi
+    from fnft_tpu_torch.ops.fscatter import fscatter
+    from fnft_tpu_torch.utils.misc import rel_err
+
+    d = 1 << 16
+    disc = ft.Discretization.SPLIT2A
+    for t_span, bound_ in (((-20.0, 20.0), 2e-6), ((-8.0, 8.0), 1e-10)):
+        eps_t = (t_span[1] - t_span[0]) / (d - 1)
+        qt = torch.as_tensor(1.1j / np.cosh(np.linspace(*t_span, d))).to(dev)
+
+        def call():
+            tm, _ = fscatter(qt, -torch.conj(qt), eps_t, disc,
+                             normalize=False)
+            return fi.finvscatter(tm, eps_t, 1, disc)
+
+        q, *run = drive(spy, torch, f"inverse fscatter+finvscatter D={d} "
+                        f"T={t_span}", call, "inverse")
+        err = float((q - qt).abs().max())
+        print(f"fscatter -> finvscatter D=2^16 T={t_span}: max error "
+              f"{err:.3e} < {bound_}; " + timing(*run))
+        check(err < bound_, f"finvscatter T={t_span}: {err:.3e}")
+        check(run[2]["fused_tree_levels"] > 0, "finvscatter: K1 not launched")
+    # the peel, graphed (sub-blocks of degree <= 1024 replay CUDA graphs)
+    # and eager (the same recursion, one launch an operation)
+    spy.begin(f"inverse peel D={d}, graphed and eager", "inverse")
+    tm, _ = fscatter(qt, -torch.conj(qt), eps_t, disc, normalize=False)
+    t_col = (tm[0, 0], tm[1, 0])
+    walls = {}
+    for mode in ("graphed", "eager", "graphed"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "graphed":
+            q_g = fi.finvscatter(tm, eps_t, 1, disc)
+        else:
+            q_e, _ = fi._recurse_col(t_col, d, eps_t, 1, disc, False)
+        torch.cuda.synchronize()
+        walls.setdefault(mode, []).append(time.perf_counter() - t0)
+    dev_rel = rel_dev(q_e, q_g)
+    check(dev_rel <= 1e-12, f"peel: eager and graphed differ by {dev_rel:.3e}")
+    graphed_ops = count_ops(torch, lambda: fi.finvscatter(tm, eps_t, 1, disc))
+    leaf = fi._GRAPH_LEAF_DEG
+    leaf_col = (t_col[0][:leaf + 1].clone(), t_col[1][:leaf + 1].clone())
+    leaf_ops = count_ops(torch, lambda: fi._recurse_col(leaf_col, leaf, eps_t,
+                                                        1, disc, True))
+    n_leaves = d // leaf
+    spy.end()
+    print(f"  peel D=2^16: graphed {min(walls['graphed']):.4f} s, "
+          f"{graphed_ops} dispatched operations and {n_leaves} graph "
+          f"replays; eager {walls['eager'][0]:.4f} s, {leaf_ops} dispatched "
+          f"operations in each of its {n_leaves} degree-{leaf} leaves, "
+          f"~{n_leaves * leaf_ops} in all; eager vs graphed {dev_rel:.1e}")
+    # round trip with bound states at D = 2^16 (tests/test_nsev_inverse.py's
+    # D = 512 case, bound 0.014)
+    m = 2 * d
+    t_span = (-32.0, 32.0)
+    t = np.linspace(*t_span, d)
+    q_exact = torch.as_tensor(3.4 / np.cosh(t) * np.exp(-4j * t)).to(dev)
+    xi_span = ft.nsev_inverse_xi_grid(d, t_span, m)
+    fwd, fwd_wall, *_ = drive(
+        spy, torch, f"inverse round trip D={d}: forward nsev",
+        lambda: ft.nsev(q_exact, t_span, m=m, xi_span=xi_span,
+                        opts=ft.NsevOpts(
+                            discretization=ft.Discretization.SPLIT4B,
+                            discspec_type=ft.DiscspecType.NORMING_CONSTANTS)),
+        "inverse", warm=0)
+    check(fwd.bound_states.numel() == 3,
+          f"round trip D=2^16: {fwd.bound_states.numel()} bound states")
+    q, *run = drive(spy, torch, "inverse round trip D=65536",
+                    lambda: ft.nsev_inverse(
+                        fwd.reflection_coefficient, xi_span, d, t_span,
+                        bound_states=fwd.bound_states,
+                        normconsts_or_residues=fwd.norming_constants),
+                    "inverse")
+    err = float(rel_err(q, q_exact))
+    print(f"  nsev -> nsev_inverse D=2^16 M=2^17 with 3 bound states: error "
+          f"{err:.3e} <= 0.014; forward {fwd_wall:.4f} s, inverse "
+          + timing(*run))
+    check(err <= 0.014, f"round trip D=2^16: {err:.3e}")
 
 
 def main() -> int:
@@ -830,7 +1359,7 @@ def main() -> int:
         for d in (4096, 1 << 16, 1 << 20)]
     records.append(k2_main_path_record(kernels, torch, dev,
                                        spy.launches(k2, (8192, 8192))))
-    done = {(rec["name"], tuple(rec["shape"])) for rec in records}
+    done = {(rec["name"], tuple(rec["shape"]), "") for rec in records}
 
     phase("10 fast schemes at D=2^16: 2SPLIT2A, 4SPLIT4B, 2SPLIT3A, 2SPLIT8B")
     fast_schemes_full_width(ft, spy, torch, dev)
@@ -846,17 +1375,35 @@ def main() -> int:
 
     phase("14 kdvv")
     kdvv_paths(ft, spy, torch, dev)
+
+    phase("15 nsep: the reference's tests on the card")
+    nsep_reference_rows(ft, spy, torch, dev)
+
+    phase("16 nsep at full width: D=2^16 (2SPLIT4B) and 2^18 (2SPLIT2A)")
+    nsep_full_width(ft, spy, torch, dev)
+
+    phase("17 nsev_inverse: the reference's tests on the card")
+    inverse_reference_cases(ft, spy, torch, dev)
+
+    phase("18 the inverse at full width: D=2^16")
+    inverse_full_width(ft, spy, torch, dev)
     spy.remove()
 
-    phase("15 kernels at every shape the paths gave them")
+    phase("19 kernels at every shape the paths gave them")
     records += records_of_kept(spy, torch, done)
-    for name, shape in (
-            (k1, (1 << 16, 2, 2, 2)), (k1, (1 << 16, 2, 2, 4)),
-            (k1, (1 << 17, 2, 2, 3)), (k1, (1 << 18, 2, 2, 3)),
-            (k2, (18724, 18724)), (k2, (1 << 14, 1 << 14))):
-        check((name, shape) in spy.kept, f"{name} never ran at {shape}")
-    check(any(name == k2 and shape[1] < shape[0] for name, shape in spy.kept),
-          "K2 never ran on an active set")
+    for name, shape, tag in (
+            (k1, (1 << 16, 2, 2, 2), ""), (k1, (1 << 16, 2, 2, 4), ""),
+            (k1, (1 << 17, 2, 2, 3), ""), (k1, (1 << 18, 2, 2, 3), ""),
+            (k2, (18724, 18724), ""), (k2, (1 << 14, 1 << 14), ""),
+            # shapes of nsep's trees and batched rows, and of the inverse
+            (k1, (1 << 18, 2, 2, 2), "nsep"), (k1, (1 << 14, 2, 2, 2), "nsep"),
+            (k1, (1 << 16, 2, 2, 3), "nsep"), (k2, (8192, 8192), "nsep"),
+            (k2, (1 << 14, 1 << 14), "nsep"),
+            (k1, (1 << 16, 2, 2, 2), "inverse")):
+        check((name, shape, tag) in spy.kept,
+              f"{name} never ran at {shape} on {tag or 'nsev/kdvv'}")
+    check(any(name == k2 and shape[1] < shape[0]
+              for name, shape, _ in spy.kept), "K2 never ran on an active set")
 
     print(smi)
     print(json.dumps({"kernels": records}))

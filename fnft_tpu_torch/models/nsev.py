@@ -292,18 +292,24 @@ def _richardson(result, q, t0, t1, m, xi0, xi1, kappa, opts, want_dspec):
     return result
 
 
-def _as_signal(q, device=None) -> torch.Tensor:
-    """A tensor stays on its device; anything else goes to ``device``, which
-    defaults to the CUDA card. Without CUDA that default raises: the work
-    runs on the CPU only when the caller asks for it."""
-    if isinstance(q, torch.Tensor):
-        return q
+def _array_device(device=None) -> torch.device:
+    """Where an input that is not a tensor goes: ``device``, which defaults
+    to the CUDA card. Without CUDA that default raises: the work runs on
+    the CPU only when the caller asks for it."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "fnft_tpu_torch runs on the CUDA device by default and none is "
             "available; pass device='cpu' (or a CPU tensor) to run on the CPU")
-    return torch.as_tensor(np.asarray(q), device=dev)
+    return dev
+
+
+def _as_signal(q, device=None) -> torch.Tensor:
+    """A tensor stays on its device; anything else goes to
+    :func:`_array_device`."""
+    if isinstance(q, torch.Tensor):
+        return q
+    return torch.as_tensor(np.asarray(q), device=_array_device(device))
 
 
 def _nsev(q, t_span, m, xi_span, kappa, opts, want_bound_states,

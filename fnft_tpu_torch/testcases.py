@@ -339,3 +339,64 @@ def kdvv_poschl_teller_case(d: int, s: float):
     t_span = (-20.0, 20.0)
     u = s * (s + 1) / np.cosh(np.linspace(*t_span, d)) ** 2
     return u, t_span, np.array([s - n for n in range(int(np.ceil(s)))])
+
+
+# ---------------------------------------------------------------------------
+# periodic NSE cases (reference src/private/fnft__nsep_testcases.c), exact
+# main and auxiliary spectra, with the box in which the reference's tests
+# drop the slowly converging points
+# ---------------------------------------------------------------------------
+
+def nsep_plane_wave_case(d: int, nu: float = 3.0):
+    """Plane wave 2 exp(i nu t) on [0, 2 pi), D samples, focusing: (q,
+    t_span, kappa, main spectrum -nu/2 +- i sqrt(4 - j^2/4), auxiliary
+    spectrum (j >= 1), removal box around the double point at -nu/2)
+    (fnft__nsep_testcases.c:118-151)."""
+    t_span = (0.0, 2 * np.pi)
+    q = 2.0 * np.exp(1j * nu * (2 * np.pi / d) * np.arange(d))
+    j = np.arange(50)
+    sq = np.sqrt(4 - j * j / 4.0 + 0j)
+    main = np.concatenate([-nu / 2 + 1j * sq, -nu / 2 - 1j * sq])
+    aux = np.concatenate([-nu / 2 + 1j * sq[1:], -nu / 2 - 1j * sq[1:]])
+    remove_box = (-nu / 2 - 0.1, -nu / 2 + 0.1, -0.1, 0.1)
+    return q, t_span, +1, main, aux, remove_box
+
+
+def nsep_constant_defocusing_case(d: int):
+    """Constant (1 + 2i)/5 on [0, 1), D samples, defocusing: (q, t_span,
+    kappa, main spectrum, auxiliary spectrum, empty removal box)
+    (fnft__nsep_testcases.c:155-224)."""
+    q = np.full(d, (1.0 + 2.0j) / 5.0)
+    pi2 = np.pi ** 2
+    edge = np.sqrt(5 * pi2 + 1) / np.sqrt(5.0)
+    main = [1 / np.sqrt(5.0), -1 / np.sqrt(5.0), edge, -edge]
+    aux = [edge, -edge]
+    for j in range(1, 25):
+        v1 = np.sqrt(20 * pi2 * j * j + 1) / np.sqrt(5.0)
+        v2 = np.sqrt(20 * pi2 * j * j + 20 * pi2 * j + 5 * pi2 + 1) / np.sqrt(5.0)
+        main += [v1, -v1, v2, -v2]
+        aux += [v1, -v1, v2, -v2]
+    return (q, (0.0, 1.0), -1, np.asarray(main, complex),
+            np.asarray(aux, complex), (0.0, 0.0, 0.0, 0.0))
+
+
+def nsep_errors(result, main, aux, box, remove_box) -> tuple[float, float]:
+    """Hausdorff distances of the computed main and auxiliary spectra to the
+    exact ones, both restricted to ``box`` and without the points in
+    ``remove_box``, as the reference's nsep tests measure them."""
+    def keep(v):
+        v = _host(v)
+        inside = ((v.real >= box[0]) & (v.real <= box[1])
+                  & (v.imag >= box[2]) & (v.imag <= box[3]))
+        removed = ((v.real > remove_box[0]) & (v.real < remove_box[1])
+                   & (v.imag > remove_box[2]) & (v.imag < remove_box[3]))
+        return v[inside & ~removed]
+
+    def hausdorff(a, b):
+        if a.size == 0 or b.size == 0:
+            return math.inf
+        dist = np.abs(a[:, None] - b[None, :])
+        return float(max(dist.min(axis=1).max(), dist.min(axis=0).max()))
+
+    return (hausdorff(keep(result.main_spectrum), keep(main)),
+            hausdorff(keep(result.aux_spectrum), keep(aux)))

@@ -201,3 +201,52 @@ def test_slow_scheme_nsev_equal_on_card_and_cpu(cuda_device):
     for field, val in vars(res[0]).items():
         assert val.device.type == "cuda"
         assert _rel(val.cpu(), getattr(res[1], field)) < 1e-10, field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kappa", [+1, -1])
+def test_finvscatter_equal_on_card_and_cpu(cuda_device, kappa):
+    """finvscatter at D = 4096: on the card its sub-blocks of degree <= 1024
+    replay CUDA graphs, one capture for every time grid; on the CPU the
+    same recursion runs eagerly."""
+    from fnft_tpu_torch.models.discretization import Discretization
+    from fnft_tpu_torch.ops.finvscatter import _leaf_graph, finvscatter
+    from fnft_tpu_torch.ops.fscatter import fscatter
+
+    d = 4096
+    for t_span in ((-8.0, 8.0), (-9.0, 9.0)):
+        eps_t = (t_span[1] - t_span[0]) / (d - 1)
+        q = torch.as_tensor(0.6j / np.cosh(np.linspace(*t_span, d)))
+        tm, _ = fscatter(q, -kappa * torch.conj(q), eps_t,
+                         Discretization.SPLIT2_MODAL, normalize=False)
+        on_cpu = finvscatter(tm, eps_t, kappa, Discretization.SPLIT2_MODAL)
+        captures = _leaf_graph.cache_info().misses
+        on_card = finvscatter(tm.to(cuda_device), eps_t, kappa,
+                              Discretization.SPLIT2_MODAL)
+        if t_span[1] > 8.0:   # the second grid replays the first's graphs
+            assert _leaf_graph.cache_info().misses == captures
+        again = finvscatter(tm.to(cuda_device), eps_t, kappa,
+                            Discretization.SPLIT2_MODAL)
+        assert on_card.device.type == "cuda"
+        assert torch.equal(on_card, again)
+        assert _rel(on_card.cpu(), on_cpu) < 1e-12
+        assert _rel(on_cpu, q) < 1e-10
+
+
+@pytest.mark.cuda
+def test_nsep_equal_on_card_and_cpu(cuda_device):
+    """The plane wave's spectra at D = 1024 (MIXED): the same points on the
+    card and on the CPU."""
+    import fnft_tpu_torch as ft
+
+    d = 1024
+    q = 2.0 * np.exp(3j * (2 * np.pi / d) * np.arange(d))
+    opts = ft.NsepOpts(filtering=ft.PointFilter.MANUAL,
+                       bounding_box=(-10.0, 10.0, -10.0, 10.0))
+    res = [ft.nsep(q, (0.0, 2 * np.pi), opts=opts, device=device)
+           for device in ("cuda", "cpu")]
+    for field in ("main_spectrum", "aux_spectrum"):
+        got, ref = getattr(res[0], field), getattr(res[1], field)
+        assert got.device.type == "cuda" and got.shape == ref.shape
+        dist = (got.cpu()[:, None] - ref[None, :]).abs()
+        assert float(torch.maximum(dist.amin(0).max(), dist.amin(1).max())) < 1e-4
