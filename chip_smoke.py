@@ -23,11 +23,19 @@ tensors, a second witness of the real points it misses); and the inverse:
 every case of the
 reference's tests, fscatter -> finvscatter at D = 2^16 with the peel's
 sub-blocks as CUDA graphs (and once eagerly), and an nsev -> nsev_inverse
-round trip with bound states at D = 2^16. Each such run prints its errors,
-three warm wall times, its launches and its peak device memory. While the
-paths run, the inputs of each kernel's first launch at every distinct
-shape (and transform) are kept, and at the end the kernel is held against
-its plain version on each of them. Any failure
+round trip with bound states at D = 2^16. Then the batched transforms of
+``fnft_tpu_torch.parallel``: the continuous spectrum of B = 64 and 1024
+signals at D = M = 4096 (complex128, and B = 64 in complex64), the full
+spectrum of B = 16 signals at D = 4096 and B = 4 at 2^16 (K2 taking the
+four Aberth rows in one launch), the NFDM link of examples/nfdm_modem.py
+with 64 bursts at D = M = 4096, and nsep of B = 2 plane waves at D = 2^16;
+each row against the per-signal transform on the card. Each such run
+prints its errors, three warm wall times, its launches and its peak device
+memory (the batched ones their spectra per second too). While the paths
+run, the inputs of each kernel's first launch at every distinct shape (and
+transform) are kept, and at the end the kernel is held against its plain
+version on each of them (a batched K2 launch also against its rows' own
+launches, bit for bit). Any failure
 raises and exits non-zero. The second line from the end is a JSON record of
 the kernels at those shapes: the path that gave the shape, launches at it
 in one run of that path, device time of the kernel and of its plain
@@ -41,6 +49,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -115,13 +124,14 @@ def k1_work(n_sub: int, c: int, itemsize: int) -> tuple[float, dict]:
     return nbytes, {"fp64" if itemsize == 8 else "fp32": flops}
 
 
-def k2_work(deg: int, m: int) -> tuple[float, dict]:
-    """Bytes and flops of K2 (complex128, lowprec) with every t_idx < deg:
-    z_all, z_t and t_idx read once, s written once; a pair costs two fp64
-    subtractions and eight fp32 operations (|d|^2, reciprocal, two
-    products, two tile sums)."""
-    pairs = m * deg - m
-    return deg * 16 + m * 36, {"fp64": 2 * pairs, "fp32": 8 * pairs}
+def k2_work(deg: int, m: int, batch: int = 1) -> tuple[float, dict]:
+    """Bytes and flops of K2 (complex128, lowprec) on ``batch`` rows with
+    every t_idx < deg: z_all, z_t and s of each row and the shared t_idx
+    read or written once; a pair costs two fp64 subtractions and eight
+    fp32 operations (|d|^2, reciprocal, two products, two tile sums)."""
+    pairs = batch * (m * deg - m)
+    return batch * (deg * 16 + m * 32) + m * 4, {"fp64": 2 * pairs,
+                                                 "fp32": 8 * pairs}
 
 
 def record(name, source, replaces, shape, path, launches, err, ms, plain_ms,
@@ -219,6 +229,25 @@ def check_k2(kernels, torch, dev) -> None:
     d_cl = rel_dev(got, oracle_k2(torch, z, z, idx))
     check(d_cl <= 1e-5, f"K2 clustered roots: {d_cl:.3e}")
     print(f"K2 deg=m=8192, pairs 1e-9 apart: lowprec vs oracle {d_cl:.3e}")
+    # a batch of rows in one launch, as the batched Aberth sweeps give it
+    # (shared root indices): each row has the bits of its own launch
+    for batch, deg, m in ((4, 8192, 8192), (12, 8192, 8192), (3, 5000, 1237),
+                          (2, 700, 700)):
+        z_all = torch.as_tensor(rng.normal(size=(batch, deg))
+                                + 1j * rng.normal(size=(batch, deg))).to(dev)
+        idx = torch.as_tensor(np.sort(rng.choice(deg, size=m, replace=False))
+                              .astype(np.int32)).to(dev)
+        z_t = z_all[:, idx.long()].contiguous()
+        for dtype in (torch.complex128, torch.complex64):
+            za, zt = z_all.to(dtype), z_t.to(dtype)
+            got = kernels.repulsion_sum(za, zt, idx)
+            ref = kernels.repulsion_sum_plain(za, zt, idx)
+            k2_rows_bitwise(kernels, torch, za, zt, idx, got,
+                            f"[{batch}, {deg}, {m}] {dtype}")
+            d_b = rel_dev(got, ref)
+            check(d_b <= 1e-5, f"K2 [{batch}, {deg}, {m}] {dtype}: {d_b:.3e}")
+            print(f"K2 batch={batch} deg={deg} m={m} {str(dtype)[6:]}: vs "
+                  f"plain {d_b:.3e}, rows bitwise equal to their own launches")
 
 
 class KernelSpy:
@@ -245,12 +274,23 @@ class KernelSpy:
         self.poly.fused_tree_levels = self.kernels.fused_tree_levels
         self.roots.repulsion_sum = self.kernels.repulsion_sum
 
+    @contextlib.contextmanager
+    def aside(self):
+        """Launches made to check a path against another (the per-signal
+        transforms a batch is held to) are not the path's: the spy steps
+        aside for them."""
+        self.remove()
+        try:
+            yield
+        finally:
+            self.install()
+
     def _spied(self, name, wrapper):
         def call(*args, **kwargs):
             if name == "fused_tree_levels":
                 shape = tuple(args[0].shape)
-            else:
-                shape = (args[0].shape[0], args[1].shape[0])
+            else:   # ([B,] deg, m)
+                shape = tuple(args[0].shape) + (args[1].shape[-1],)
             key = (name, shape, self.tag)
             self.counts[key] = self.counts.get(key, 0) + 1
             if key not in self.kept:
@@ -292,16 +332,16 @@ class KernelSpy:
 
 def k1_record(kernels, torch, p, normalize, launches, path,
               timed=True) -> dict | None:
-    """K1 (two levels, complex128) on the stack ``p`` against its plain
-    version: equal exponents, coefficients to 1e-12; with ``timed`` its
-    record."""
-    check(p.dtype == torch.complex128, f"K1 {path}: {p.dtype} on the path")
+    """K1 (two levels) on the stack ``p`` against its plain version: equal
+    exponents, coefficients to 1e-12 in complex128 (5e-6 in complex64);
+    with ``timed`` its record."""
+    tol = {torch.complex128: 1e-12, torch.complex64: 5e-6}[p.dtype]
     got, w = kernels.fused_tree_levels(p, 2, normalize=normalize)
     ref, w_ref = kernels.fused_tree_levels_plain(p, 2, normalize=normalize)
     torch.cuda.synchronize()
     check(torch.equal(w, w_ref), f"K1 {path} {list(p.shape)}: w differs")
-    check(rel_dev(got, ref) <= 1e-12, f"K1 {path} {list(p.shape)}: "
-          f"{rel_dev(got, ref):.3e} > 1e-12")
+    check(rel_dev(got, ref) <= tol, f"K1 {path} {list(p.shape)}: "
+          f"{rel_dev(got, ref):.3e} > {tol}")
     if not timed:
         print(f"K1 {list(p.shape)} ({path}): max rel dev "
               f"{rel_dev(got, ref):.3e}, w equal")
@@ -315,8 +355,9 @@ def k1_record(kernels, torch, p, normalize, launches, path,
     rec = record("fused_tree_levels", "fnft_tpu_torch/csrc/tree_levels.cu",
                  "fnft_tpu/ops/pallas_kernels.py:113", list(p.shape), path,
                  launches, float((got - ref).abs().max()), ms, plain_ms,
-                 k1_work(n_sub, p.shape[-1], 8))
-    print(f"K1 {list(p.shape)} c128 ({path}, {launches} launches): kernel "
+                 k1_work(n_sub, p.shape[-1], p.element_size() // 2))
+    print(f"K1 {list(p.shape)} {str(p.dtype)[6:]} ({path}, {launches} "
+          f"launches): kernel "
           f"{ms:.4f} ms ({rec['pct_of_bound']:.1f}% of its "
           f"{rec['bound_by']} bound {rec['bound_ms']:.4f} ms), plain "
           f"{plain_ms:.4f} ms")
@@ -337,29 +378,46 @@ def k1_main_path_record(kernels, torch, dev, d, launches) -> dict:
     return k1_record(kernels, torch, p, True, launches, f"SPLIT4B D={d}")
 
 
+def k2_rows_bitwise(kernels, torch, z_all, z_t, idx, got, what) -> None:
+    """A batched K2 launch equals the stack of its rows' own launches, bit
+    for bit."""
+    rows = torch.stack([kernels.repulsion_sum(za, zt, idx)
+                        for za, zt in zip(z_all, z_t)])
+    torch.cuda.synchronize()
+    check(torch.equal(torch.view_as_real(got), torch.view_as_real(rows)),
+          f"K2 {what}: the batched launch differs from its rows' launches")
+
+
 def k2_record(kernels, torch, z_all, z_t, idx, launches, path,
               timed=True) -> dict | None:
-    """K2 (complex128, low precision) on the roots ``z_t = z_all[idx]``
-    against its plain version, to 1e-5; with ``timed`` its record."""
-    deg, m = z_all.shape[0], z_t.shape[0]
+    """K2 (complex128, low precision) on the roots ``z_t = z_all[..., idx]``
+    ([deg] or a batch [B, deg]) against its plain version, to 1e-5, and a
+    batched launch against its rows' own launches, bit for bit; with
+    ``timed`` its record."""
+    deg, m = z_all.shape[-1], z_t.shape[-1]
+    batch = z_all.shape[0] if z_all.dim() == 2 else 1
+    shape = list(z_all.shape) + [m]
     check(z_all.dtype == torch.complex128, f"K2 {path}: {z_all.dtype}")
     got = kernels.repulsion_sum(z_all, z_t, idx)
     ref = kernels.repulsion_sum_plain(z_all, z_t, idx)
     torch.cuda.synchronize()
     check(rel_dev(got, ref) <= 1e-5,
-          f"K2 {path} [{deg}, {m}]: {rel_dev(got, ref):.3e} > 1e-5")
+          f"K2 {path} {shape}: {rel_dev(got, ref):.3e} > 1e-5")
+    if z_all.dim() == 2:
+        k2_rows_bitwise(kernels, torch, z_all, z_t, idx, got,
+                        f"{path} {shape}")
     if not timed:
-        print(f"K2 [{deg}, {m}] ({path}): max rel dev "
-              f"{rel_dev(got, ref):.3e}")
+        print(f"K2 {shape} ({path}): max rel dev {rel_dev(got, ref):.3e}"
+              + (", rows bitwise" if batch > 1 else ""))
         return None
     ms = graph_ms(lambda: kernels.repulsion_sum(z_all, z_t, idx))
     plain_ms = graph_ms(lambda: kernels.repulsion_sum_plain(z_all, z_t, idx),
-                        reps=5, replays=2)
+                        reps=5 if batch == 1 else 1, replays=2)
     rec = record("repulsion_sum", "fnft_tpu_torch/csrc/repulsion.cu",
-                 "fnft_tpu/ops/pallas_kernels.py:254", [deg, m], path,
+                 "fnft_tpu/ops/pallas_kernels.py:254", shape, path,
                  launches, float((got - ref).abs().max()), ms, plain_ms,
-                 k2_work(deg, m))
-    print(f"K2 [{deg}, {m}] c128 lowprec ({path}, {launches} launches): "
+                 k2_work(deg, m, batch))
+    print(f"K2 {shape} c128 lowprec ({path}, {launches} launches): "
           f"kernel {ms:.4f} ms ({rec['pct_of_bound']:.1f}% of its "
           f"{rec['bound_by']} bound {rec['bound_ms']:.4f} ms), plain "
           f"{plain_ms:.4f} ms, max rel dev {rel_dev(got, ref):.3e}")
@@ -465,14 +523,13 @@ def run_nsev(ft, spy, torch, dev, d, *, bound_states=True, warm=1,
     return errs, walls, launches, res
 
 
-def profile_nsev(ft, torch, dev, d) -> None:
-    """One warm nsev at D samples under torch.profiler: device time of all
-    device activity (kernels, copies), of K1's and K2's kernels, and the
-    device's busy share of the profiled wall time."""
+def device_profile(torch, call) -> dict:
+    """One warm ``call()`` under torch.profiler: its wall seconds, the
+    device time of all device activity (kernels, copies), of K1's and K2's
+    kernels (ms), and the device's busy share of the wall (%)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _, call = nsev_call(ft, torch, dev, d, True)
     call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -490,11 +547,21 @@ def profile_nsev(ft, torch, dev, d) -> None:
             k2 += evt.self_device_time_total
         elif "fused_levels" in evt.key:
             k1 += evt.self_device_time_total
-    check(total > 0 and k1 > 0 and k2 > 0,
-          f"profile D={d}: no device time seen ({total}, {k1}, {k2} us)")
-    print(f"profiled nsev D={d}: wall {wall:.4f} s, device {total / 1e3:.3f}"
-          f" ms (busy {total / 1e4 / wall:.2f}%), K2 {k2 / 1e3:.3f} ms "
-          f"({100 * k2 / total:.2f}%), K1 {k1 / 1e3:.3f} ms "
+    check(total > 0, "profile: no device time seen")
+    return {"wall": wall, "device_ms": total / 1e3, "k1_ms": k1 / 1e3,
+            "k2_ms": k2 / 1e3, "busy": total / 1e4 / wall}
+
+
+def profile_nsev(ft, torch, dev, d) -> None:
+    """One warm nsev at D samples under torch.profiler (device_profile)."""
+    _, call = nsev_call(ft, torch, dev, d, True)
+    prof = device_profile(torch, call)
+    total, k1, k2 = prof["device_ms"], prof["k1_ms"], prof["k2_ms"]
+    check(k1 > 0 and k2 > 0,
+          f"profile D={d}: no kernel time seen ({total}, {k1}, {k2} ms)")
+    print(f"profiled nsev D={d}: wall {prof['wall']:.4f} s, device "
+          f"{total:.3f} ms (busy {prof['busy']:.2f}%), K2 {k2:.3f} ms "
+          f"({100 * k2 / total:.2f}%), K1 {k1:.3f} ms "
           f"({100 * k1 / total:.2f}%)")
 
 
@@ -991,10 +1058,9 @@ def nsep_full_width(ft, spy, torch, dev) -> None:
         print(f"  K1 by shape {by_k1}, K2 by shape {by_k2}")
         check((n_full, 2, 2, c) in by_k1 and (n_sub, 2, 2, c) in by_k1,
               f"nsep {scheme} D={d}: K1 missed a tree: {by_k1}")
-        check(launches[k2] > 0 and set(by_k2) == {(deg, deg)}
-              and by_k2[(deg, deg)] % 3 == 0,
-              f"nsep {scheme} D={d}: K2 {by_k2}, want [{deg}, {deg}] on "
-              f"3 rows")
+        check(launches[k2] > 0 and set(by_k2) == {(3, deg, deg)},
+              f"nsep {scheme} D={d}: K2 {by_k2}, want [3, {deg}, {deg}]: "
+              f"3 rows in each launch")
     # the same signal in the whole box: each real double point of the plane
     # wave is a double root of p -+ 2 on the unit circle, which rounding
     # splits along the circle or off it; off it by more than the grid's
@@ -1276,6 +1342,256 @@ def inverse_full_width(ft, spy, torch, dev) -> None:
     check(err <= 0.014, f"round trip D=2^16: {err:.3e}")
 
 
+SECH_AMPS = (1.2, 2.3, 3.4, 4.45)   # 1, 2, 3 and 4 bound states
+
+
+def batch_timing(b, run) -> str:
+    """timing() of a batched run and its spectra per second (B over the
+    least warm wall)."""
+    cold, walls, launches, peak = run
+    return (timing(cold, walls, launches, peak)
+            + f", {b / min(walls):.1f} spectra/s")
+
+
+def batched_contspec(ft, spy, torch, dev) -> None:
+    """make_nsev_batch_fn (2SPLIT4B, D = M = 4096) on B = 64 and 1024
+    chirped sechs in complex128 and B = 64 in complex64: every row against
+    the per-signal nsev on the card (complex128: rtol 1e-10, atol 1e-12, as
+    tests/test_parallel.py; complex64: 1e-4 of the row's largest value,
+    float32 rounding through 13 tree levels and the chirp-Z FFTs), and a
+    profile of one warm call at B = 64 and 1024 (device busy share)."""
+    from fnft_tpu_torch.parallel import make_nsev_batch_fn
+    from fnft_tpu_torch.testcases import NsevTestcase, nsev_testcase
+
+    d = m = 4096
+    data = nsev_testcase(NsevTestcase.SECH_FOCUSING, d)
+    t = np.linspace(*data.t_span, d)
+    rng = np.random.default_rng(11)
+    fn = make_nsev_batch_fn(d, data.t_span, m, data.xi_span)
+    for b, dtype in ((64, torch.complex128), (1024, torch.complex128),
+                     (64, torch.complex64)):
+        amps, chirps = 0.5 + 3.0 * rng.random(b), rng.uniform(-2, 2, b)
+        q = torch.as_tensor(1j * amps[:, None] / np.cosh(t)[None] * np.exp(
+            1j * chirps[:, None] * t[None])).to(dtype).to(dev)
+        path = f"batched contspec B={b} D=M={d} {str(dtype)[6:]}"
+        res, *run = drive(spy, torch, path, lambda: fn(q),
+                          "batch" if dtype == torch.complex128
+                          else "batch c64")
+        rho = res["rho"]
+        check(rho.shape == (b, m) and rho.dtype == dtype
+              and bool(torch.isfinite(rho).all()), f"{path}: {rho.shape}")
+        t0 = time.perf_counter()
+        worst = 0.0
+        with spy.aside():
+            for i in range(b):
+                single = ft.nsev(q[i], data.t_span, m=m,
+                                 xi_span=data.xi_span,
+                                 want_bound_states=False
+                                 ).reflection_coefficient
+                if dtype == torch.complex128:
+                    excess = ((rho[i] - single).abs()
+                              / (1e-12 + 1e-10 * single.abs())).max()
+                else:
+                    excess = (rho[i] - single).abs().max() / (
+                        1e-4 * single.abs().max())
+                worst = max(worst, float(excess))
+        print(f"{path}: {batch_timing(b, run)}; rows vs per-signal nsev: "
+              f"worst {worst:.3e} of the tolerance "
+              f"({time.perf_counter() - t0:.1f} s for {b} calls)")
+        check(worst <= 1.0, f"{path}: a row is off the per-signal nsev")
+        check(run[2]["fused_tree_levels"] == 1, f"{path}: K1 {run[2]}")
+        if dtype == torch.complex128:
+            prof = device_profile(torch, lambda: fn(q))
+            print(f"  profiled B={b}: wall {prof['wall']:.4f} s, device "
+                  f"{prof['device_ms']:.3f} ms (busy {prof['busy']:.2f}%), "
+                  f"K1 {prof['k1_ms']:.3f} ms")
+
+
+def batched_full_spectrum(ft, spy, torch, dev) -> None:
+    """make_batched_full_nsev (k_max = 8, contspec BOTH) on sechs of
+    amplitudes 1.2, 2.3, 3.4, 4.45 (cycled) and the SECH_FOCUSING test
+    case: B = 16 x D = 4096 and B = 4 x D = 2^16 (K2 on [4, 8192] rows).
+    Against the per-signal nsev on the card: bound states 5e-6, norming
+    constants 5e-5, rho/a/b 1e-10 of max(1, |.|) (tests/test_parallel.py);
+    the SECH_FOCUSING row's contspec, bound states and norming constants
+    within BOUNDS_4096."""
+    from fnft_tpu_torch.models.nsev import NsevResult
+    from fnft_tpu_torch.parallel import make_batched_full_nsev
+    from fnft_tpu_torch.testcases import (NsevTestcase, nsev_errors,
+                                          nsev_testcase)
+
+    opts = ft.NsevOpts(contspec_type=ft.ContspecType.BOTH,
+                       discspec_type=ft.DiscspecType.BOTH)
+    for b, d in ((16, 4096), (4, 1 << 16)):
+        data = nsev_testcase(NsevTestcase.SECH_FOCUSING, d)
+        t = np.linspace(*data.t_span, d)
+        amps = [SECH_AMPS[i % 4] for i in range(b - 1)]
+        q = torch.as_tensor(np.stack([1j * a / np.cosh(t) for a in amps]
+                                     + [data.q])).to(dev)
+        fn = make_batched_full_nsev(d, data.t_span, data.m, data.xi_span,
+                                    k_max=8)
+        path = f"batched full spectrum B={b} D={d}"
+        res, *run = drive(spy, torch, path, lambda: fn(q), "batch")
+        print(f"{path}: {batch_timing(b, run)}")
+        print(f"  K1 by shape {spy.by_shape('fused_tree_levels')}, K2 by "
+              f"shape {spy.by_shape('repulsion_sum')}")
+        if d > 4096:
+            check(set(spy.by_shape("repulsion_sum")) == {(b, 8192, 8192)},
+                  f"{path}: K2 {spy.by_shape('repulsion_sum')}")
+        worst = {"bound_states": 0.0, "normconsts": 0.0, "contspec": 0.0}
+        for i in range(b):
+            with spy.aside():
+                drv = ft.nsev(q[i], data.t_span, m=data.m,
+                              xi_span=data.xi_span, opts=opts)
+            mask = res.bound_state_mask[i]
+            bs, nc = res.bound_states[i][mask], res.norming_constants[i][mask]
+            order, order_d = (torch.argsort(x.imag) for x in
+                              (bs, drv.bound_states))
+            want = 3 if i == b - 1 else int(round(amps[i]))
+            check(bs.numel() == drv.bound_states.numel() == want,
+                  f"{path} row {i}: {bs.numel()} bound states, the "
+                  f"per-signal nsev {drv.bound_states.numel()}, want {want}")
+            worst["bound_states"] = max(worst["bound_states"], float(
+                (bs[order] - drv.bound_states[order_d]).abs().max()))
+            worst["normconsts"] = max(worst["normconsts"], float(
+                (nc[order] - drv.norming_constants[order_d]).abs().max()))
+            for key, field in (("rho", "reflection_coefficient"), ("a", "a"),
+                               ("b", "b")):
+                ref = getattr(drv, field)
+                worst["contspec"] = max(worst["contspec"], float(
+                    (getattr(res, key)[i] - ref).abs().max()
+                    / max(1.0, float(ref.abs().max()))))
+        print(f"  rows vs per-signal nsev: bound states "
+              f"{worst['bound_states']:.3e} <= 5e-6, norming constants "
+              f"{worst['normconsts']:.3e} <= 5e-5, rho/a/b "
+              f"{worst['contspec']:.3e} <= 1e-10")
+        check(worst["bound_states"] <= 5e-6 and worst["normconsts"] <= 5e-5
+              and worst["contspec"] <= 1e-10, f"{path}: {worst}")
+        row = b - 1
+        mask = res.bound_state_mask[row]
+        errs = nsev_errors(NsevResult(
+            reflection_coefficient=res.rho[row],
+            bound_states=res.bound_states[row][mask],
+            norming_constants=res.norming_constants[row][mask]), data)
+        check_bounds(f"{path}, SECH_FOCUSING row", errs,
+                     (BOUNDS_4096[0], None, None) + BOUNDS_4096[3:5],
+                     ("contspec", "bound_states", "normconsts"))
+
+
+def nfdm_link_full_width(ft, spy, torch, dev) -> None:
+    """examples/nfdm_modem.py's link at D = M = 4096: 64 bursts x 16 QPSK
+    carriers through make_batched_inverse_fn (2SPLIT2A) and
+    make_nsev_batch_fn; each burst's waveform against the per-signal
+    nsev_inverse on the card (1e-10 relative), no symbol error, the EVM."""
+    from fnft_tpu_torch.parallel import (make_batched_inverse_fn,
+                                         make_nsev_batch_fn)
+
+    d = m = 4096
+    t_span, batch, carriers = (-16.0, 16.0), 64, 16
+    rng = np.random.default_rng(1)
+    symbols = (rng.integers(0, 2, size=(batch, carriers)) * 2 - 1
+               + 1j * (rng.integers(0, 2, size=(batch, carriers)) * 2 - 1)
+               ) / np.sqrt(2)
+    inv, xi_span = make_batched_inverse_fn(d, t_span, m)
+    fwd = make_nsev_batch_fn(d, t_span, m, xi_span)
+    xi = np.linspace(*xi_span, m)
+    centers = np.linspace(-3.0, 3.0, carriers)
+    pulses = np.exp(-((xi[None, :] - centers[:, None]) / 0.12) ** 2)
+    rho_tx = 0.25 * (symbols @ pulses)
+    rho_t = torch.as_tensor(rho_tx).to(dev)
+
+    def link():
+        q = inv(rho_t)
+        return q, fwd(q)["rho"]
+
+    path = f"NFDM link B={batch} x {carriers} carriers D=M={d}"
+    (q, rho_rx), *run = drive(spy, torch, path, link, "batch")
+    print(f"{path}: {batch_timing(batch, run)}")
+    t0 = time.perf_counter()
+    with spy.aside():
+        worst = max(rel_dev(q[i], ft.nsev_inverse(rho_t[i], xi_span, d,
+                                                  t_span))
+                    for i in range(batch))
+    print(f"  bursts vs per-signal nsev_inverse: {worst:.3e} <= 1e-10 "
+          f"({time.perf_counter() - t0:.1f} s for {batch} calls)")
+    check(worst <= 1e-10, f"{path}: a burst is off nsev_inverse: {worst}")
+    idx = np.argmin(np.abs(xi[None, :] - centers[:, None]), axis=1)
+    tx, rx = rho_tx[:, idx], rho_rx.cpu().numpy()[:, idx]
+    evm = float(np.sqrt(np.mean(np.abs(rx - tx) ** 2)
+                        / np.mean(np.abs(tx) ** 2)))
+    errors = int(np.sum(np.sign(rx.real) + 1j * np.sign(rx.imag)
+                        != np.sign(tx.real) + 1j * np.sign(tx.imag)))
+    print(f"  spectral EVM through the inverse -> forward link {evm:.3e}, "
+          f"symbol errors {errors}")
+    check(errors == 0 and evm < 0.05, f"{path}: EVM {evm}, {errors} errors")
+
+
+def batched_nsep_full_width(ft, spy, torch, dev) -> None:
+    """batched_nsep (2SPLIT4B, default options: AUTO box, 2 spine values)
+    on plane waves at D = 2^16: K1 on the [B, 4096, 2, 2, 3] Dsub tree, K2
+    on [3B, 8192] rows. B = 2 of the amplitudes 0.9, 1.0, 1.1, 1.2: a call
+    takes ~7 s a signal (Newton on ~22k candidates a signal in the AUTO
+    box, in lambda slices of 32), far beyond the other batched paths, so B
+    is cut, never D. Each row's main and aux spectra against the
+    per-signal nsep (S&R) on the card: equal counts, every per-signal
+    point within 1e-8 of a batched one, but for double points of the aux
+    spectrum (a per-signal neighbour within 1e-6: the amplitude-1 wave's b
+    has a double root at 0), which Aberth splits by ~sqrt(eps) and the aux
+    Newton, a plain one, leaves at once (|b| < sqrt(eps) there): held to
+    1e-7. (The main Newton's line search takes double steps, so the main
+    spectrum's double points converge and are held to 1e-8.)"""
+    from fnft_tpu_torch.parallel import batched_nsep
+
+    d, amps = 1 << 16, (0.9, 1.0, 1.1, 1.2)[:2]
+    t_span = (0.0, 2 * np.pi)
+    disc = ft.Discretization.SPLIT4B
+    q = torch.as_tensor(np.stack([np.full(d, a, complex) for a in amps])
+                        ).to(dev)
+    b = len(amps)
+    path = f"batched nsep B={b} D={d} SPLIT4B"
+    res, *run = drive(spy, torch, path, lambda: batched_nsep(
+        q, t_span, disc=disc), "batch nsep")
+    by_k1, by_k2 = spy.by_shape("fused_tree_levels"), spy.by_shape(
+        "repulsion_sum")
+    print(f"{path}: {batch_timing(b, run)}")
+    print(f"  K1 by shape {by_k1}, K2 by shape {by_k2}; main points "
+          f"{res.main_mask.sum(dim=1).tolist()}, aux points "
+          f"{res.aux_mask.sum(dim=1).tolist()}")
+    check(set(by_k1) == {(b, 4096, 2, 2, 3)}
+          and set(by_k2) == {(3 * b, 8192, 8192)}, f"{path}: K1 {by_k1}, "
+          f"K2 {by_k2}")
+    opts = ft.NsepOpts(localization=ft.Localization.SUBSAMPLE_AND_REFINE,
+                       discretization=disc)
+    worst = {"simple": 0.0, "double": 0.0}
+    t0 = time.perf_counter()
+    for i in range(b):
+        with spy.aside():
+            ref = ft.nsep(q[i], t_span, opts=opts)
+        for key, want in (("main", ref.main_spectrum),
+                          ("aux", ref.aux_spectrum)):
+            got = getattr(res, f"{key}_spectrum")[i][
+                getattr(res, f"{key}_mask")[i]]
+            check(got.numel() == want.numel() > 0, f"{path} row {i} {key}: "
+                  f"{got.numel()} points, per-signal {want.numel()}")
+            dist = (got[:, None] - want[None, :]).abs().amin(dim=0)
+            double = torch.zeros_like(dist, dtype=torch.bool)
+            if key == "aux":
+                near = (want[:, None] - want[None, :]).abs()
+                near.fill_diagonal_(np.inf)
+                double = near.amin(dim=1) < 1e-6
+            for kind, sel in (("simple", ~double), ("double", double)):
+                if bool(sel.any()):
+                    worst[kind] = max(worst[kind], float(dist[sel].max()))
+            print(f"  row {i} {key}: {int(double.sum())} double points, "
+                  f"farthest per-signal point {float(dist.max()):.3e} away")
+    print(f"  rows vs per-signal nsep: main and simple aux points "
+          f"{worst['simple']:.3e} <= 1e-8, double aux points "
+          f"{worst['double']:.3e} <= 1e-7 "
+          f"({time.perf_counter() - t0:.1f} s for {b} calls)")
+    check(worst["simple"] <= 1e-8 and worst["double"] <= 1e-7,
+          f"{path}: {worst}")
+
+
 def main() -> int:
     import torch
 
@@ -1387,9 +1703,21 @@ def main() -> int:
 
     phase("18 the inverse at full width: D=2^16")
     inverse_full_width(ft, spy, torch, dev)
+
+    phase("19 batched contspec: B=64 and 1024 x D=M=4096")
+    batched_contspec(ft, spy, torch, dev)
+
+    phase("20 batched full spectrum: B=16 x D=4096, B=4 x D=2^16")
+    batched_full_spectrum(ft, spy, torch, dev)
+
+    phase("21 the NFDM link at full width: 64 bursts, D=M=4096")
+    nfdm_link_full_width(ft, spy, torch, dev)
+
+    phase("22 batched nsep: B=2 x D=2^16 (2SPLIT4B)")
+    batched_nsep_full_width(ft, spy, torch, dev)
     spy.remove()
 
-    phase("19 kernels at every shape the paths gave them")
+    phase("23 kernels at every shape the paths gave them")
     records += records_of_kept(spy, torch, done)
     for name, shape, tag in (
             (k1, (1 << 16, 2, 2, 2), ""), (k1, (1 << 16, 2, 2, 4), ""),
@@ -1397,12 +1725,23 @@ def main() -> int:
             (k2, (18724, 18724), ""), (k2, (1 << 14, 1 << 14), ""),
             # shapes of nsep's trees and batched rows, and of the inverse
             (k1, (1 << 18, 2, 2, 2), "nsep"), (k1, (1 << 14, 2, 2, 2), "nsep"),
-            (k1, (1 << 16, 2, 2, 3), "nsep"), (k2, (8192, 8192), "nsep"),
-            (k2, (1 << 14, 1 << 14), "nsep"),
-            (k1, (1 << 16, 2, 2, 2), "inverse")):
+            (k1, (1 << 16, 2, 2, 3), "nsep"), (k2, (3, 8192, 8192), "nsep"),
+            (k2, (3, 1 << 14, 1 << 14), "nsep"),
+            (k1, (1 << 16, 2, 2, 2), "inverse"),
+            # the batched paths: K1 over the batch, K2 taking it in one launch
+            (k1, (64, 4096, 2, 2, 3), "batch"),
+            (k1, (1024, 4096, 2, 2, 3), "batch"),
+            (k1, (64, 4096, 2, 2, 3), "batch c64"),
+            (k1, (16, 4096, 2, 2, 3), "batch"),
+            (k1, (16, 1024, 2, 2, 3), "batch"),
+            (k1, (4, 1 << 16, 2, 2, 3), "batch"),
+            (k1, (4, 4096, 2, 2, 3), "batch"),
+            (k2, (4, 8192, 8192), "batch"),
+            (k1, (2, 4096, 2, 2, 3), "batch nsep"),
+            (k2, (6, 8192, 8192), "batch nsep")):
         check((name, shape, tag) in spy.kept,
               f"{name} never ran at {shape} on {tag or 'nsev/kdvv'}")
-    check(any(name == k2 and shape[1] < shape[0]
+    check(any(name == k2 and len(shape) == 2 and shape[1] < shape[0]
               for name, shape, _ in spy.kept), "K2 never ran on an active set")
 
     print(smi)

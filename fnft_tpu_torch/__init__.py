@@ -15,6 +15,9 @@ an input that is not a tensor goes to the CUDA device unless ``device=``
 names another, and without CUDA that default raises. On a CUDA tensor the
 two hot kernels run as hand-written sm_90a CUDA (``csrc/``, built with nvcc
 at first use); on a CPU tensor their plain PyTorch versions run.
+:mod:`fnft_tpu_torch.parallel` holds the batched transforms (a batch of
+signals as the leading tensor axis): the continuous spectrum, the full
+spectrum, the inverse and nsep.
 
 This package never imports jax; :mod:`fnft_tpu` is its reference in the
 tests only.
@@ -56,6 +59,8 @@ from fnft_tpu_torch.models.nsev_inverse import (
     nsev_inverse,
     nsev_inverse_xi_grid,
 )
+
+from fnft_tpu_torch import parallel  # noqa: F401,E402
 
 __version__ = "0.1.0"
 FNFT_REFERENCE_VERSION = (0, 4, 1, "")  # parity target: fnft_version.c:26-45

@@ -30,8 +30,9 @@ from fnft_tpu_torch.utils.misc import (
 
 def _warn_if_not_bandlimited(q: torch.Tensor, eps_t: float) -> None:
     """The reference's warning that the resampling step is ill-posed
-    (fnft__misc.c:370-380); costs one device-to-host read."""
-    if float(bandlimit_violation(q, eps_t)) > math.sqrt(eps_of(q.dtype)):
+    (fnft__misc.c:370-380), once for a batch of signals; costs one
+    device-to-host read."""
+    if float(bandlimit_violation(q, eps_t).max()) > math.sqrt(eps_of(q.dtype)):
         warn("Signal does not appear to be bandlimited; the "
              "interpolation step may be inaccurate. Reduce the step "
              "size or use a discretization without resampling.")
@@ -49,7 +50,8 @@ def preprocess_signal(q: torch.Tensor, eps_t: float, kappa: int,
 
     Returns (q_eff, r_eff, dsub_actual, (first_index, last_index)) where
     the effective tensors have ``dsub_actual * upsampling_factor`` samples.
-    Mirrors fnft__nse_discretization.c:386-656.
+    ``q [..., D]`` may carry leading batch axes. Mirrors
+    fnft__nse_discretization.c:386-656.
     """
     cdt = complex_dtype_of(q)
     q = q.to(cdt)

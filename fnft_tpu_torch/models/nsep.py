@@ -20,12 +20,12 @@ Localization strategies, as in the reference:
 
 The Newton evaluators build the ``[S, K, 2, 2]`` step matrices of the base
 scheme, so they take the K lambdas in slices of at most
-``_LAM_BATCH_MATRICES`` step matrices. A main-spectrum Newton sweep that
-does not converge returns its iterate of least residual
-(:func:`_mainspec_newton_sweep`). Quasi-periodic signals are handled
-by removing the phase rotation up front and shifting the spectra back
-afterwards (reference :118-135, 200-213). Results are tensors on the
-input's device.
+``_LAM_BATCH_MATRICES`` step matrices, and the sweeps evaluate only the
+points not yet frozen. A main-spectrum Newton sweep that does not converge
+returns its iterate of least residual (:func:`_mainspec_newton_sweep`).
+Quasi-periodic signals are handled by removing the phase rotation up front
+and shifting the spectra back afterwards (reference :118-135, 200-213).
+Results are tensors on the input's device.
 """
 
 from __future__ import annotations
@@ -152,38 +152,60 @@ def _gridsearch(q_pre, eps_t, kappa, box, opts, want_main, want_aux):
     return main, aux, box
 
 
-def _sliced(evaluate, lam: torch.Tensor, steps: int):
-    """``evaluate`` over ``lam`` in slices of at most
+def _sliced(evaluate, lam: torch.Tensor, steps: int, rows=None):
+    """``evaluate(lam_s, rows_s)`` over ``lam`` (and the signal row of each
+    point, ``rows``, or None) in slices of at most
     ``_LAM_BATCH_MATRICES // steps`` points; every lambda is independent,
     so the result is the one-slice result."""
     per = max(1, _LAM_BATCH_MATRICES // max(steps, 1))
     if lam.shape[0] <= per:
-        return evaluate(lam)
-    parts = [evaluate(lam[k0:k0 + per]) for k0 in range(0, lam.shape[0], per)]
+        return evaluate(lam, rows)
+    parts = [evaluate(lam[k0:k0 + per],
+                      None if rows is None else rows[k0:k0 + per])
+             for k0 in range(0, lam.shape[0], per)]
     return tuple(torch.cat(x) for x in zip(*parts))
 
 
-def _eval_floquet(q_eff, r_eff, lam, eps_t, base_disc):
-    """(f, f') with f = Delta(lam) = T00 + T11 of the full monodromy."""
-    def evaluate(lam_s):
-        t, td = scatter_matrix(q_eff, r_eff, lam_s, eps_t, base_disc,
-                               derivative=True)
+def _monodromy(q_eff, r_eff, lam, eps_t, base_disc, rows):
+    """T and dT/dlam ``[K, 2, 2]`` of the full monodromy at ``lam [K]``:
+    of the one signal ``q_eff [D_eff]``, or with ``rows [K]`` of the
+    signal ``q_eff[rows[k]]`` of a batch ``[B, D_eff]`` at each point."""
+    if rows is None:
+        return scatter_matrix(q_eff, r_eff, lam, eps_t, base_disc,
+                              derivative=True)
+    t, td = scatter_matrix(q_eff[rows], r_eff[rows], lam[:, None], eps_t,
+                           base_disc, derivative=True)
+    return t[:, 0], td[:, 0]
+
+
+def _eval_floquet(q_eff, r_eff, lam, eps_t, base_disc, rows=None):
+    """(f, f') with f = Delta(lam) = T00 + T11 of the full monodromy (of
+    ``q_eff[rows]`` with ``rows``, see :func:`_monodromy`)."""
+    def evaluate(lam_s, rows_s):
+        t, td = _monodromy(q_eff, r_eff, lam_s, eps_t, base_disc, rows_s)
         return t[:, 0, 0] + t[:, 1, 1], td[:, 0, 0] + td[:, 1, 1]
-    return _sliced(evaluate, lam, q_eff.shape[-1])
+    return _sliced(evaluate, lam, q_eff.shape[-1], rows)
 
 
-def _eval_b(q_eff, r_eff, lam, eps_t, base_disc):
-    """(f, f') with f = T01 of the full monodromy."""
-    def evaluate(lam_s):
-        t, td = scatter_matrix(q_eff, r_eff, lam_s, eps_t, base_disc,
-                               derivative=True)
+def _eval_b(q_eff, r_eff, lam, eps_t, base_disc, rows=None):
+    """(f, f') with f = T01 of the full monodromy (of ``q_eff[rows]`` with
+    ``rows``)."""
+    def evaluate(lam_s, rows_s):
+        t, td = _monodromy(q_eff, r_eff, lam_s, eps_t, base_disc, rows_s)
         return t[:, 0, 1], td[:, 0, 1]
-    return _sliced(evaluate, lam, q_eff.shape[-1])
+    return _sliced(evaluate, lam, q_eff.shape[-1], rows)
 
 
-def _mainspec_newton_sweep(floquet, lam0, rhs, tol, iters):
+def _mainspec_newton_sweep(floquet, lam0, rhs, tol, iters, frozen=None):
     """The reference's higher-order-root Newton with m in {1,2} line
-    search (refine_mainspec, :707-793): ``iters`` iterations, no host read.
+    search (refine_mainspec, :707-793): ``iters`` iterations in lock step.
+
+    ``floquet(lam, idx)`` gives ``(f, f')`` at the points ``lam`` of the
+    candidates ``idx`` (int64 indices into ``lam0 [K]``). Points that are
+    ``frozen`` from the start (default: none), or have frozen since, keep
+    their values and are left out of the evaluations, which the JAX
+    package makes and never reads: one host read an iteration finds the
+    live points, and the sweep ends early once none is left.
 
     A point whose residual |f| never falls below ``tol`` comes back at its
     iterate of least residual, not at its last one as in the JAX package.
@@ -194,54 +216,64 @@ def _mainspec_newton_sweep(floquet, lam0, rhs, tol, iters):
     -1.53-0.03i to -1.70-0.17i (``tests/test_torch_nsep.py``). Converged
     points are untouched.
 
-    Parameterized over the ``(f, f') = floquet(lam)`` evaluator so another
-    evaluator of the monodromy (e.g. a D-sharded one) shares one Newton
-    body."""
-    k = lam0.shape[0]
+    Parameterized over the evaluator so another evaluator of the monodromy
+    (a batch of signals, e.g. a D-sharded one) shares one Newton body."""
     # match the pipeline dtype: a float64 rhs would promote the c64 carry
     rhs = torch.as_tensor(rhs, device=lam0.device).to(
-        real_dtype_of(lam0.dtype))
-    rhs2 = torch.cat([rhs, rhs]) if rhs.dim() == 1 else rhs
-    lam = lam0
-    f, fp = floquet(lam0)
-    f = f + rhs
-    best, best_res = lam0, torch.abs(f)
-    frozen = torch.zeros(k, dtype=torch.bool, device=lam0.device)
+        real_dtype_of(lam0.dtype)).expand(lam0.shape)
+    frozen = (torch.zeros(lam0.shape, dtype=torch.bool, device=lam0.device)
+              if frozen is None else frozen.clone())
+    live = torch.nonzero(~frozen)[:, 0]
+    f, fp = torch.zeros_like(lam0), torch.zeros_like(lam0)
+    f_l, fp_l = floquet(lam0[live], live)
+    f[live], fp[live] = f_l + rhs[live], fp_l
+    lam, best, best_res = lam0.clone(), lam0.clone(), torch.abs(f)
     converged = torch.zeros_like(frozen)
     for _ in range(iters):
-        incr = f / torch.where(fp == 0, 1.0, fp)
-        fc, fpc = floquet(torch.cat([lam - incr, lam - 2 * incr]))
-        fc = fc + rhs2
-        f1, f2 = fc[:k], fc[k:]
+        if live.numel() == 0:
+            break
+        n = live.numel()
+        lam_l, f_l, fp_l, rhs_l = lam[live], f[live], fp[live], rhs[live]
+        incr = f_l / torch.where(fp_l == 0, 1.0, fp_l)
+        fc, fpc = floquet(torch.cat([lam_l - incr, lam_l - 2 * incr]),
+                          torch.cat([live, live]))
+        fc = fc + torch.cat([rhs_l, rhs_l])
+        f1, f2 = fc[:n], fc[n:]
         pick2 = torch.abs(f2) < torch.abs(f1)
-        lam_new = torch.where(pick2, lam - 2 * incr, lam - incr)
+        lam_new = torch.where(pick2, lam_l - 2 * incr, lam_l - incr)
         f_new = torch.where(pick2, f2, f1)
-        fp_new = torch.where(pick2, fpc[k:], fpc[:k])
+        fp_new = torch.where(pick2, fpc[n:], fpc[:n])
         # converged states take a final plain Newton step and freeze (:781-788)
         conv = torch.abs(f_new) < tol
         fp_new_safe = torch.where(fp_new == 0, 1.0, fp_new)
-        lam_final = torch.where(conv, lam_new - f_new / fp_new_safe, lam_new)
-        better = ~frozen & (torch.abs(f_new) < best_res)
-        best = torch.where(better, lam_new, best)
-        best_res = torch.where(better, torch.abs(f_new), best_res)
-        lam = torch.where(frozen, lam, lam_final)
-        f = torch.where(frozen, f, f_new)
-        fp = torch.where(frozen, fp, fp_new)
-        converged = converged | (~frozen & conv)
-        frozen = frozen | conv | (fp_new == 0)
+        better = torch.abs(f_new) < best_res[live]
+        best[live] = torch.where(better, lam_new, best[live])
+        best_res[live] = torch.where(better, torch.abs(f_new), best_res[live])
+        lam[live] = torch.where(conv, lam_new - f_new / fp_new_safe, lam_new)
+        f[live], fp[live], converged[live] = f_new, fp_new, conv
+        frozen[live] = conv | (fp_new == 0)
+        live = live[~frozen[live]]
     return torch.where(converged, lam, best)
 
 
-def _auxspec_newton_sweep(evalb, lam0, tol, iters):
-    """Plain Newton on ``(f, f') = evalb(lam)`` with per-root freezing
-    (refine_auxspec, :796-835): ``iters`` iterations, no host read."""
-    lam = lam0
-    frozen = torch.zeros(lam0.shape, dtype=torch.bool, device=lam0.device)
+def _auxspec_newton_sweep(evalb, lam0, tol, iters, frozen=None):
+    """Plain Newton on ``(f, f') = evalb(lam, idx)`` with per-root freezing
+    (refine_auxspec, :796-835): ``iters`` iterations; frozen points, those
+    ``frozen`` from the start included, are left out as in
+    :func:`_mainspec_newton_sweep`."""
+    lam = lam0.clone()
+    frozen = (torch.zeros(lam0.shape, dtype=torch.bool, device=lam0.device)
+              if frozen is None else frozen.clone())
+    live = torch.nonzero(~frozen)[:, 0]
     for _ in range(iters):
-        f, fp = evalb(lam)
-        lam_new = lam - f / torch.where(fp == 0, 1.0, fp)
-        lam = torch.where(frozen | (fp == 0), lam, lam_new)
-        frozen = frozen | (torch.abs(f) < tol) | (fp == 0)
+        if live.numel() == 0:
+            break
+        lam_l = lam[live]
+        f, fp = evalb(lam_l, live)
+        lam[live] = torch.where(fp == 0, lam_l,
+                                lam_l - f / torch.where(fp == 0, 1.0, fp))
+        frozen[live] = (torch.abs(f) < tol) | (fp == 0)
+        live = live[~frozen[live]]
     return lam
 
 
@@ -252,7 +284,7 @@ def _refine_mainspec(q_eff, r_eff, lam0, eps_t, rhs, tol, max_evals,
     if lam0.numel() == 0 or max_evals == 0:
         return lam0
     return _mainspec_newton_sweep(
-        lambda lam: _eval_floquet(q_eff, r_eff, lam, eps_t, base_disc),
+        lambda lam, _: _eval_floquet(q_eff, r_eff, lam, eps_t, base_disc),
         lam0, rhs, tol, max(1, (max_evals - 1) // 2))
 
 
@@ -261,7 +293,7 @@ def _refine_auxspec(q_eff, r_eff, lam0, eps_t, tol, max_evals, base_disc):
     if lam0.numel() == 0 or max_evals == 0:
         return lam0
     return _auxspec_newton_sweep(
-        lambda lam: _eval_b(q_eff, r_eff, lam, eps_t, base_disc),
+        lambda lam, _: _eval_b(q_eff, r_eff, lam, eps_t, base_disc),
         lam0, tol, max_evals)
 
 

@@ -111,25 +111,36 @@ def _im_bound(q, t0: float, t1: float) -> float:
     return float(1.5 * 0.25 * misc.l2norm2(q, t0, t1))
 
 
-def _contspec_eval(tm, q_eff, r_eff, eps_t, xi0, xi1, m, disc):
+def _chirpz_points(eps_t, xi0, xi1, m, disc):
+    """(a, w) of the spiral z_k = a w^k that the xi grid maps to."""
+    deg1 = 2.0 / nse.xi_map_coeff(disc)  # = degree * upsampling
+    eps_xi = (xi1 - xi0) / (m - 1)
+    return (complex(np.exp(2j * xi0 * eps_t / deg1)),
+            complex(np.exp(2j * eps_xi * eps_t / deg1)))
+
+
+def _contspec_eval(tm, q_eff, r_eff, eps_t, xi0, xi1, m, disc, tables=None):
     """H11(xi), H21(xi) on the xi grid (fnft_nsev.c:744-835): chirp-Z of
-    the transfer polynomials for a fast scheme, the monodromy matrix at
-    every xi for a slow one."""
+    the transfer polynomials for a fast scheme (``tables``: see
+    :func:`chirpz`), the monodromy matrix at every xi for a slow one.
+    ``tm [..., 2, 2, deg+1]`` and ``q_eff [..., D_eff]`` may carry leading
+    batch axes; returns ``[..., m]``."""
     if degree(disc) > 0:
-        deg1 = 2.0 / nse.xi_map_coeff(disc)  # = degree * upsampling
-        eps_xi = (xi1 - xi0) / (m - 1)
-        a_pt = complex(np.exp(2j * xi0 * eps_t / deg1))
-        w_pt = complex(np.exp(2j * eps_xi * eps_t / deg1))
-        h = chirpz(tm[:, 0], a_pt, w_pt, m)   # rows (1,1) and (2,1) together
-        return h[0], h[1]
+        a_pt, w_pt = _chirpz_points(eps_t, xi0, xi1, m, disc)
+        # rows (1,1) and (2,1) together
+        h = chirpz(tm[..., :, 0, :], a_pt, w_pt, m, tables)
+        return h[..., 0, :], h[..., 1, :]
     xi = torch.linspace(xi0, xi1, m, dtype=real_dtype_of(q_eff.dtype),
                         device=q_eff.device)
-    t = scatter_matrix(q_eff, r_eff, xi, eps_t, disc)
-    return t[:, 0, 0], t[:, 1, 0]
+    t = scatter_matrix(q_eff, r_eff, xi.expand(*q_eff.shape[:-1], m), eps_t,
+                       disc)
+    return t[..., 0, 0], t[..., 1, 0]
 
 
 def _apply_phase_factors(h11, h21, w, eps_t, t0, t1, d_given, xi0, xi1, m,
                          disc, contspec_type):
+    """The contspec representations from ``h11, h21 [..., m]`` and the
+    tree's exponents ``w [...]``."""
     rdt = real_dtype_of(h11.dtype)
     xi = torch.linspace(xi0, xi1, m, dtype=rdt, device=h11.device)
     out = {}
@@ -137,7 +148,7 @@ def _apply_phase_factors(h11, h21, w, eps_t, t0, t1, d_given, xi0, xi1, m,
         pf = nse.phase_factor_rho(eps_t, t1, disc)
         out["rho"] = h21 * torch.exp(1j * xi * pf) / h11
     if contspec_type in (ContspecType.AB, ContspecType.BOTH):
-        scale = _pow2(w, rdt)   # exact 2^w
+        scale = _pow2(w, rdt)[..., None]   # exact 2^w
         pfa = nse.phase_factor_a(eps_t, d_given, t0, t1, disc)
         pfb = nse.phase_factor_b(eps_t, d_given, t0, t1, disc)
         out["a"] = h11 * scale * torch.exp(1j * xi * pfa)

@@ -96,12 +96,14 @@ def _xi_grid(xi_span, m: int, like: torch.Tensor) -> torch.Tensor:
 
 
 def _reorder(cs: torch.Tensor, m: int) -> torch.Tensor:
-    """FFT ordering of the xi grid (reference :251-296)."""
-    return torch.cat([cs[m // 2 - 1:], cs[: m // 2 - 1]])
+    """FFT ordering of the xi grid (reference :251-296), along the last
+    axis."""
+    return torch.cat([cs[..., m // 2 - 1:], cs[..., : m // 2 - 1]], dim=-1)
 
 
 def _remove_bc(contspec, xi_span, m, eps_t, t0, t1, d, ctype, disc):
-    """Strip boundary phase factors (reference :251-296)."""
+    """Strip boundary phase factors (reference :251-296) from ``contspec
+    [..., M]``."""
     if ctype is InverseContspecType.REFLECTION_COEFFICIENT:
         pf = nse.phase_factor_rho(eps_t, t1, disc)
     else:
@@ -110,19 +112,22 @@ def _remove_bc(contspec, xi_span, m, eps_t, t0, t1, d, ctype, disc):
 
 
 def _stack_desc(tm11_d, tm12_d, tm21_d, tm22_d) -> torch.Tensor:
-    """[2, 2, deg+1] ascending from the four descending entries."""
-    return torch.stack([torch.stack([tm11_d, tm12_d]),
-                        torch.stack([tm21_d, tm22_d])]).flip(-1)
+    """[..., 2, 2, deg+1] ascending from the four descending entries
+    ``[..., deg+1]`` (broadcast against each other)."""
+    e = torch.broadcast_tensors(tm11_d, tm12_d, tm21_d, tm22_d)
+    return torch.stack([torch.stack(e[:2], dim=-2),
+                        torch.stack(e[2:], dim=-2)], dim=-3).flip(-1)
 
 
 def _tm_from_b_fft(b_fft, m, deg, kappa, cdt):
-    """Descending-order B blocks from FFT coefficients (reference :344-358)."""
+    """Descending-order B blocks ``[..., deg+1]`` from FFT coefficients
+    ``[..., m]`` (reference :344-358)."""
     i0 = 0 if deg <= m - 1 else deg - (m - 1)
     idx = np.arange(deg + 1)
     dev = b_fft.device
     valid = torch.as_tensor(idx >= i0, device=dev)
-    take21 = b_fft[torch.as_tensor((deg - idx) % m, device=dev)]
-    take12 = b_fft[torch.as_tensor((m - 1 - deg + idx) % m, device=dev)]
+    take21 = b_fft[..., torch.as_tensor((deg - idx) % m, device=dev)]
+    take12 = b_fft[..., torch.as_tensor((m - 1 - deg + idx) % m, device=dev)]
     tm21_d = torch.where(valid, take21, 0.0) / m
     tm12_d = torch.where(valid, -kappa * torch.conj(take12) / m, 0.0)
     return tm12_d.to(cdt), tm21_d.to(cdt)
@@ -137,6 +142,8 @@ def _a_one(deg, cdt, device):
 
 def _build_tm_reflection(contspec, xi_span, m, d, t0, t1, deg, kappa, disc,
                          opts):
+    """B(z) from the FFT of the reflection coefficient ``[..., M]``, A = 1
+    (reference :300-371); returns ``[..., 2, 2, deg+1]``."""
     eps_t = (t1 - t0) / (d - 1)
     cdt = complex_dtype_of(contspec)
     cs = _remove_bc(contspec, xi_span, m, eps_t, t0, t1, d,
@@ -149,14 +156,14 @@ def _build_tm_reflection(contspec, xi_span, m, d, t0, t1, deg, kappa, disc,
 
 def _tm_from_ab(a_d, b_d, d, deg, kappa, cdt):
     """Transfer matrix from descending length-D A and B coefficient blocks
-    (reference :486-507, :660-678)."""
+    ``[..., D]`` (reference :486-507, :660-678)."""
     idx = torch.arange(d, device=a_d.device)
-    z = torch.zeros(deg + 1, dtype=cdt, device=a_d.device)
+    z = torch.zeros(*a_d.shape[:-1], deg + 1, dtype=cdt, device=a_d.device)
     tm11_d, tm12_d, tm21_d, tm22_d = z.clone(), z.clone(), z.clone(), z.clone()
-    tm11_d[1 + idx] = a_d[:d].to(cdt)
-    tm12_d[idx] = (-kappa * torch.conj(b_d[d - 1 - idx])).to(cdt)
-    tm21_d[1 + idx] = b_d[:d].to(cdt)
-    tm22_d[idx] = a_d[d - 1 - idx].to(cdt)
+    tm11_d[..., 1 + idx] = a_d[..., :d].to(cdt)
+    tm12_d[..., idx] = (-kappa * torch.conj(b_d[..., d - 1 - idx])).to(cdt)
+    tm21_d[..., 1 + idx] = b_d[..., :d].to(cdt)
+    tm22_d[..., idx] = a_d[..., d - 1 - idx].to(cdt)
     return _stack_desc(tm11_d, tm12_d, tm21_d, tm22_d)
 
 
@@ -200,7 +207,8 @@ def _build_tm_reflection_iter(contspec, xi_span, m, d, t0, t1, deg, kappa,
 
 def _build_tm_b_of_xi(contspec, xi_span, m, d, t0, t1, deg, kappa, disc,
                       opts):
-    """B(z) from FFT of b(xi), A(z) by spectral factorization (:560-627)."""
+    """B(z) from FFT of b(xi) ``[..., M]``, A(z) by spectral factorization
+    (:560-627)."""
     eps_t = (t1 - t0) / (d - 1)
     cdt = complex_dtype_of(contspec)
     cs = _remove_bc(contspec, xi_span, m, eps_t, t0, t1, d,

@@ -103,7 +103,7 @@ def library() -> ctypes.CDLL:
                 i32, i32, ctypes.POINTER(i32)]
             lib.fnft_repulsion_scratch_rows.restype = i32
             lib.fnft_repulsion_sum.argtypes = [
-                vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
+                vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
             lib.fnft_repulsion_sum.restype = i32
             _lib = lib
     return _lib

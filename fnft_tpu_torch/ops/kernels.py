@@ -122,7 +122,13 @@ def repulsion_sum_plain(z_all: torch.Tensor, z_t: torch.Tensor,
     """Plain version of :func:`repulsion_sum`, chunked over j as
     ``fnft_tpu/ops/roots.py:92-105``: each ``[m, chunk]`` block of
     differences is formed in the input precision; with ``lowprec`` its
-    reciprocals and row sums run in complex64."""
+    reciprocals and row sums run in complex64. Under a batch axis
+    (``z_all [B, deg]``, ``z_t [B, m]``) it takes the rows one by one, so
+    each row has the bits of its own call."""
+    if z_all.dim() == 2:
+        return torch.stack([repulsion_sum_plain(za, zt, t_idx,
+                                                lowprec=lowprec)
+                            for za, zt in zip(z_all, z_t)])
     deg = z_all.shape[0]
     m = z_t.shape[0]
     chunk = max(512, min(1 << 16, (1 << 26) // max(m, 1)))
@@ -141,15 +147,18 @@ def repulsion_sum_plain(z_all: torch.Tensor, z_t: torch.Tensor,
 
 def repulsion_sum(z_all: torch.Tensor, z_t: torch.Tensor,
                   t_idx: torch.Tensor, *, lowprec: bool = True):
-    """Aberth repulsion ``s_i = sum_{j != t_idx_i} 1/(z_t_i - z_all_j)``.
+    """Aberth repulsion ``s_i = sum_{j != t_idx_i} 1/(z_t_i - z_all_j)``:
+    ``z_all [deg]``, ``z_t [m]``, ``t_idx [m]``, or a batch of rows
+    ``z_all [B, deg]``, ``z_t [B, m]`` with one ``t_idx [m]`` for all.
 
-    Replaces the Pallas kernel ``fnft_tpu/ops/pallas_kernels.py:254``.
-    On the H100 (``csrc/repulsion.cu``) the grid is row blocks (256
-    active roots, two per thread) x splits of the j range, chosen there
-    from deg, m and the SM count; each block streams its split of ``z_all``
-    through shared memory in tiles of 512, and a second kernel adds the
-    splits' partial sums in a fixed order, so the result has the same bits
-    on every launch. The O(m deg) reciprocals bound it, so the
+    Replaces the Pallas kernel ``fnft_tpu/ops/pallas_kernels.py:254`` (and
+    its vmapped form). On the H100 (``csrc/repulsion.cu``) the grid is row
+    blocks (256 active roots, two per thread) x splits of the j range,
+    chosen there from deg, m and the SM count, x the batch rows; each block
+    streams its split of ``z_all`` through shared memory in tiles of 512,
+    and a second kernel adds the splits' partial sums in a fixed order, so
+    the result has the same bits on every launch, and each row those of a
+    launch of that row alone. The O(m deg) reciprocals bound it, so the
     low-precision contract (reciprocals and tile sums in fp32) is what buys
     its speed.
     """
@@ -161,8 +170,11 @@ def repulsion_sum(z_all: torch.Tensor, z_t: torch.Tensor,
                         f"{z_t.dtype} must share a complex dtype")
     if t_idx.dtype != torch.int32:
         raise TypeError(f"repulsion_sum: t_idx must be int32, got {t_idx.dtype}")
-    if z_all.dim() != 1 or z_t.dim() != 1 or t_idx.shape != z_t.shape:
-        raise ValueError("repulsion_sum: z_all [deg], z_t [m], t_idx [m]")
+    if (z_all.dim() not in (1, 2) or z_t.dim() != z_all.dim()
+            or z_t.shape[:-1] != z_all.shape[:-1] or t_idx.dim() != 1
+            or t_idx.shape[0] != z_t.shape[-1]):
+        raise ValueError("repulsion_sum: z_all [deg], z_t [m], t_idx [m], "
+                         "or z_all [B, deg], z_t [B, m], t_idx [m]")
     if not all(x.is_contiguous() and x.device == z_t.device
                for x in (z_all, t_idx)) or not z_t.is_contiguous():
         raise ValueError("repulsion_sum: inputs must be contiguous, on one "
@@ -170,17 +182,18 @@ def repulsion_sum(z_all: torch.Tensor, z_t: torch.Tensor,
     from fnft_tpu_torch.ops import _build
 
     lib = _build.library()
-    deg, m = z_all.shape[0], z_t.shape[0]
+    deg, m = z_all.shape[-1], z_t.shape[-1]
+    batch = z_t[..., 0].numel() if m else 0
     out = torch.empty_like(z_t)
     with torch.cuda.device(z_t.device):
         rows = ctypes.c_int(0)
         _check_launch("repulsion_sum", lib.fnft_repulsion_scratch_rows(
             deg, m, ctypes.byref(rows)))
-        part = (torch.empty((rows.value, m), dtype=z_t.dtype,
+        part = (torch.empty((batch, rows.value, m), dtype=z_t.dtype,
                             device=z_t.device) if rows.value > 1 else out)
         err = lib.fnft_repulsion_sum(
             z_all.data_ptr(), z_t.data_ptr(), t_idx.data_ptr(),
-            out.data_ptr(), part.data_ptr(), rows.value, deg, m,
+            out.data_ptr(), part.data_ptr(), rows.value, batch, deg, m,
             int(z_t.dtype == torch.complex128), int(lowprec),
             torch.cuda.current_stream().cuda_stream)
     _check_launch("repulsion_sum", err)

@@ -507,16 +507,19 @@ def _chirpz_tables(a: complex, w: complex, n: int, m: int,
                  (a_pow * w_half_sq[:n], np.fft.fft(v), w_half_sq[:m]))
 
 
-def chirpz(coeffs: torch.Tensor, a: complex, w: complex, m: int):
+def chirpz(coeffs: torch.Tensor, a: complex, w: complex, m: int,
+           tables=None):
     """Evaluate p(z) at the spiral points ``z_k = a * w**k``, k = 0..m-1.
 
     Bluestein factorization (3 FFTs); ``coeffs`` may carry leading batch
-    dimensions. Reference: fnft__poly_chirpz.c:33-105, ascending order.
+    dimensions. ``tables`` are :func:`_chirpz_tables` of this geometry,
+    held by a caller that evaluates it again and again (else taken from
+    the cache). Reference: fnft__poly_chirpz.c:33-105, ascending order.
     """
     cdt = complex_dtype_of(coeffs)
     n = coeffs.shape[-1]
-    x_weight, v_f, out_weight = _chirpz_tables(complex(a), complex(w), n, m,
-                                               cdt, coeffs.device)
+    x_weight, v_f, out_weight = tables or _chirpz_tables(
+        complex(a), complex(w), n, m, cdt, coeffs.device)
     length = v_f.shape[0]
     x = coeffs.to(cdt) * x_weight
     conv = torch.fft.ifft(torch.fft.fft(x, n=length, dim=-1) * v_f, dim=-1)

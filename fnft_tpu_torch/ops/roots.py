@@ -35,16 +35,19 @@ def _repulsion_chunked(z_all, z_t, t_idx, lowprec: bool = True):
 def _repulsion(z_all, z_t, t_idx):
     """The sweeps' repulsion term of the roots ``z_t = z_all[..., t_idx]``
     against all of ``z_all [..., deg]``: dense and in full precision up to
-    ``DENSE_REPULSION_MAX`` roots, K2 above (row by row under a leading
-    batch axis). The term only steers the iteration's path (the fixed
-    point p(z) = 0 does not depend on it), so K2's fp32 reciprocals cost
-    no accuracy."""
+    ``DENSE_REPULSION_MAX`` roots, K2 above (one launch for all rows of the
+    leading batch axes). The term only steers the iteration's path (the
+    fixed point p(z) = 0 does not depend on it), so K2's fp32 reciprocals
+    cost no accuracy."""
     deg = z_all.shape[-1]
     if deg > DENSE_REPULSION_MAX:
         if z_all.dim() == 1:
             return _repulsion_chunked(z_all, z_t, t_idx)
-        return torch.stack([_repulsion_chunked(za, zt, t_idx)
-                            for za, zt in zip(z_all, z_t)])
+        lead = z_t.shape[:-1]
+        return _repulsion_chunked(
+            z_all.reshape(-1, deg).contiguous(),
+            z_t.reshape(-1, z_t.shape[-1]).contiguous(),
+            t_idx).reshape(*lead, -1)
     # one [..., m, deg] buffer, the m own terms set to 1 before the
     # reciprocal and to 0 after it (fewer passes than two masked wheres)
     rows = torch.arange(z_t.shape[-1], device=z_all.device)
@@ -152,6 +155,64 @@ def _newton_polygon_init(abs_coeffs: np.ndarray) -> np.ndarray:
         guesses[pos: pos + m] = r * np.exp(1j * ang)
         pos += m
     return guesses[:n]
+
+
+def newton_polygon_init(coeffs: torch.Tensor) -> torch.Tensor:
+    """Bini initial guesses for the rows ``coeffs [..., deg+1]``: the
+    semantics of the JAX package's traced ``newton_polygon_init_jax``
+    (fnft_tpu/ops/roots.py:212-291), which the batched pipelines use.
+
+    Unlike :func:`_newton_polygon_init` it places no 1e6 / 1e-6 circles for
+    zero end coefficients: every root slot, counted from the first hull
+    vertex, takes the circle of its hull segment (slots past the last
+    vertex that of the last segment), with radii clipped to [1e-12, 1e12].
+    The hull is built on the host (one read of ``abs(coeffs)``), the
+    points on ``coeffs``' device. Returns ``[..., deg]``.
+    """
+    cdt = complex_dtype_of(coeffs)
+    lead, n1 = coeffs.shape[:-1], coeffs.shape[-1]
+    deg = n1 - 1
+    absc = torch.abs(coeffs).detach().cpu().to(torch.float64).reshape(
+        -1, n1).numpy()
+    with np.errstate(divide="ignore"):
+        logc = np.where(absc > 0, np.log(np.where(absc > 0, absc, 1.0)),
+                        -np.inf)
+    # Andrew's monotone chain over the finite points, as the JAX scan: a
+    # fixed-size stack whose popped entries stay behind, and its size
+    stack = np.zeros(logc.shape, dtype=np.int64)
+    size = np.zeros(logc.shape[0], dtype=np.int64)
+    for row, lc in enumerate(logc):
+        st, sz = stack[row], 0
+        for k in np.flatnonzero(np.isfinite(lc)):
+            while sz >= 2:
+                i, j = st[sz - 2], st[sz - 1]
+                if (lc[j] - lc[i]) * (k - i) <= (lc[k] - lc[i]) * (j - i):
+                    sz -= 1
+                else:
+                    break
+            st[sz] = k
+            sz += 1
+        size[row] = sz
+    seg_start, seg_end = stack, np.roll(stack, -1, axis=-1)
+    seg_valid = np.arange(n1) < (size[:, None] - 1)
+    take = np.take_along_axis
+    safe_m = np.maximum(seg_end - seg_start, 1).astype(np.float64)
+    with np.errstate(invalid="ignore"):   # -inf - -inf off the hull
+        r_seg = np.exp((take(logc, seg_start, -1) - take(logc, seg_end, -1))
+                       / safe_m)
+    r_seg = np.clip(np.where(seg_valid, r_seg, 1.0), 1e-12, 1e12)
+    pos = np.clip(np.arange(deg) + stack[:, :1], 0, n1 - 1)
+    starts = np.where(seg_valid, seg_start, n1 + 1)
+    seg_of = np.clip(np.stack([np.searchsorted(st, ps, side="right")
+                               for st, ps in zip(starts, pos)]) - 1,
+                     0, n1 - 1)
+    start_of, end_of = take(seg_start, seg_of, -1), take(seg_end, seg_of, -1)
+    m_seg = np.maximum(end_of - start_of, 1).astype(np.float64)
+    ang = (2 * np.pi * (pos - start_of + 0.5) / m_seg
+           + 0.7 * end_of.astype(np.float64))
+    z0 = take(r_seg, seg_of, -1) * np.exp(1j * ang)
+    return torch.as_tensor(z0.reshape(*lead, deg),
+                           device=coeffs.device).to(cdt)
 
 
 def _aberth_sweep(coeffs, z_all, za, idx, frozen_a, tol):

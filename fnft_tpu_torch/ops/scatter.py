@@ -9,7 +9,9 @@ so on every device prefix products are log-depth (Hillis-Steele) and full
 products a pairwise tree. Derivatives ride along as pairs
 (T, T') -> (U T, U' T + U T'). From ``_CHUNK_THRESHOLD`` steps on, the
 phi/psi sweeps take the two-pass chunked route, which never holds the
-``[S, K, 2, 2]`` trajectory.
+``[S, K, 2, 2]`` trajectory. Signals ``[..., D_eff]`` may carry leading
+batch axes, with the spectral points ``[..., K]`` of each signal beside
+them: the step matrices are then ``[S, ..., K, 2, 2]``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,14 @@ def _stage_weight_per_step(disc: Discretization, d_eff: int, dtype, device):
     """Per-step lambda scaling: stage weights tiled over the sample axis."""
     w = lambda_stage_weights(disc)
     return torch.as_tensor(np.tile(w, d_eff // len(w)), device=device).to(dtype)
+
+
+def _steps_first(x: torch.Tensor, width: int = 1) -> torch.Tensor:
+    """``[..., S * width]`` samples as ``[S, ..., 1(, width)]``: steps along
+    dim 0, a singleton axis where the K spectral points broadcast."""
+    if width == 1:
+        return x.movedim(-1, 0)[..., None]
+    return x.reshape(*x.shape[:-1], -1, width).movedim(-2, 0)[..., None, :]
 
 
 def _mm2(b: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -180,13 +190,15 @@ def _tes4_step(q3, r3, l, eps_t, *, derivative: bool, backward: bool = False):
 def _family_inputs(q, r, eps_t, disc):
     """(xs, step_fn, derivative scale) of a slow scheme. ``xs`` are the
     per-step inputs along dim 0 with a singleton axis where the K spectral
-    points broadcast: ``[S, 1]`` for the CF family (q, r, stage weight),
-    ``[S, 1, 3]`` sample triplets for ES4/TES4. ``step_fn(lam, *xs,
-    derivative=, backward=)`` gives all step matrices at once,
-    ``U [S, K, 2, 2]`` and dU/dlam (or None), in the order of ``xs`` (the
-    caller reverses ``xs`` for a backward sweep)."""
+    points broadcast: ``[S, ..., 1]`` for the CF family (q, r, stage
+    weight), ``[S, ..., 1, 3]`` sample triplets for ES4/TES4, ``...`` the
+    batch axes of ``q``. ``step_fn(lam, *xs, derivative=, backward=)``
+    gives all step matrices at once, ``U [S, ..., K, 2, 2]`` and dU/dlam
+    (or None), in the order of ``xs`` (the caller reverses ``xs`` for a
+    backward sweep)."""
     if disc in _CF_FAMILY:
         wsteps = _stage_weight_per_step(disc, q.shape[-1], q.dtype, q.device)
+        wsteps = wsteps.reshape((-1,) + (1,) * q.dim())
         scl = 1.0 / len(lambda_stage_weights(disc))
 
         def step(lam, qn, rn, wn, *, derivative, backward=False):
@@ -194,7 +206,7 @@ def _family_inputs(q, r, eps_t, disc):
             return _cf_step_matrices(qn, rn, lam * wn, h,
                                      derivative=derivative)
 
-        return (q[:, None], r[:, None], wsteps[:, None]), step, scl
+        return (_steps_first(q), _steps_first(r), wsteps), step, scl
     if disc in (Discretization.ES4, Discretization.TES4):
         inner = _es4_step if disc is Discretization.ES4 else _tes4_step
 
@@ -202,7 +214,7 @@ def _family_inputs(q, r, eps_t, disc):
             return inner(q3n, r3n, lam, eps_t, derivative=derivative,
                          backward=backward)
 
-        return (q.reshape(-1, 1, 3), r.reshape(-1, 1, 3)), step, 1.0
+        return (_steps_first(q, 3), _steps_first(r, 3)), step, 1.0
     raise ValueError(f"{disc} is not a slow discretization")
 
 
@@ -252,11 +264,11 @@ def scatter_matrix(q, r, lam, eps_t: float, disc: Discretization, *,
     """Full-interval scattering matrix at each lambda.
 
     Args:
-      q, r: effective-sample potentials ``[D_eff]``.
-      lam: spectral points ``[K]``.
+      q, r: effective-sample potentials ``[..., D_eff]``.
+      lam: spectral points ``[..., K]`` (the same batch axes as ``q``).
 
-    Returns ``T [K, 2, 2]``, and with ``derivative`` also ``dT/dlam
-    [K, 2, 2]``, already multiplied by the CF stage scale (reference
+    Returns ``T [..., K, 2, 2]``, and with ``derivative`` also ``dT/dlam
+    [..., K, 2, 2]``, already multiplied by the CF stage scale (reference
     :207-210).
     """
     cdt = complex_dtype_of(q)
@@ -307,7 +319,7 @@ def _bound_states_chunked(xs, step_fn, lam, phi0, dphi0, psi_end, te, scl,
     instead of holding the trajectories. Chunks are worked in batches of
     up to ``_CHUNK_BATCH_MATRICES`` step matrices.
     """
-    k = lam.shape[0]
+    k = lam.numel()
     c_num = xs[0].shape[0] // chunk_len
     batch = max(1, _CHUNK_BATCH_MATRICES // (chunk_len * k))
 
@@ -337,8 +349,8 @@ def _bound_states_chunked(xs, step_fn, lam, phi0, dphi0, psi_end, te, scl,
     phi_end = _mv2(pm[-1], phi0)
     dphi_end = _mv2(pd[-1], phi0) + _mv2(pm[-1], dphi0)
     e_te = torch.exp(1j * lam * te)
-    a = phi_end[:, 0] * e_te
-    aprime = scl * (dphi_end[:, 0] * e_te + (1j * te) * a)
+    a = phi_end[..., 0] * e_te
+    aprime = scl * (dphi_end[..., 0] * e_te + (1j * te) * a)
     if skip_b:
         return a, aprime, torch.zeros_like(a)
 
@@ -362,11 +374,11 @@ def _bound_states_chunked(xs, step_fn, lam, phi0, dphi0, psi_end, te, scl,
         psi_rc = psi_right[c0:c0 + batch]
         psi_rev = _mv2(_prefix_product(ub)[0], psi_rc)     # (c+1)L-1 .. cL
         psi_vals = torch.cat([psi_rev.flip(0)[1:], psi_rc[None]])
-        # [L/se, G, K, 2] -> samples in time order along dim 0
+        # [L/se, G, ..., K, 2] -> samples in time order along dim 0
         phi_s = phi_vals[store_every - 1::store_every].transpose(0, 1)
         psi_s = psi_vals[store_every - 1::store_every].transpose(0, 1)
-        metric, bc = _b_metric(phi_s.reshape(-1, k, 2),
-                               psi_s.reshape(-1, k, 2))
+        metric, bc = _b_metric(phi_s.reshape(-1, *lam.shape, 2),
+                               psi_s.reshape(-1, *lam.shape, 2))
         j = torch.argmin(metric, dim=0)[None, :]
         m_loc = torch.take_along_dim(metric, j, dim=0)[0]
         b_loc = torch.take_along_dim(bc, j, dim=0)[0]
@@ -385,9 +397,10 @@ def scatter_bound_states(q, r, lam, eps_t: float, t0: float, t1: float,
     point minimizing |log| phi2 psi1 / (psi2 phi1)||/2 (the error metric of
     DOI 10.1109/ACCESS.2019.2932256; reference bound_states.c:642-654).
     With ``skip_b`` only the full products are formed (a pairwise tree
-    instead of the trajectory).
+    instead of the trajectory). ``q, r [..., D_eff]`` and ``lam [..., K]``
+    share their leading batch axes.
 
-    Returns (a, a_prime, b), each ``[K]``.
+    Returns (a, a_prime, b), each ``[..., K]``.
     """
     cdt = complex_dtype_of(q)
     q, r, lam = q.to(cdt), r.to(cdt), lam.to(cdt)
@@ -398,7 +411,7 @@ def scatter_bound_states(q, r, lam, eps_t: float, t0: float, t1: float,
     zeros = torch.zeros_like(lam)
     e_te = torch.exp(1j * lam * te)
     phi0 = torch.stack([torch.exp(-1j * lam * tb), zeros], dim=-1)
-    dphi0 = torch.stack([phi0[:, 0] * (-1j * tb), zeros], dim=-1)
+    dphi0 = torch.stack([phi0[..., 0] * (-1j * tb), zeros], dim=-1)
     psi_end = torch.stack([zeros, e_te], dim=-1)
 
     s_len = xs[0].shape[0]
@@ -415,12 +428,12 @@ def scatter_bound_states(q, r, lam, eps_t: float, t0: float, t1: float,
         pm_end, pd_end = pm[-1], pd[-1]
     phi_end = _mv2(pm_end, phi0)
     dphi_end = _mv2(pd_end, phi0) + _mv2(pm_end, dphi0)
-    a = phi_end[:, 0] * e_te
-    aprime = scl * (dphi_end[:, 0] * e_te + (1j * te) * a)
+    a = phi_end[..., 0] * e_te
+    aprime = scl * (dphi_end[..., 0] * e_te + (1j * te) * a)
     if skip_b:
         return a, aprime, torch.zeros_like(a)
 
-    # trajectories at the original grid points: [D_given + 1, K, 2]
+    # trajectories at the original grid points: [D_given + 1, ..., K, 2]
     phi_samples = torch.cat(
         [phi0[None], _mv2(pm[store_every - 1::store_every], phi0)])
     ub, _ = step_fn(lam, *(x.flip(0) for x in xs), derivative=False,
@@ -431,5 +444,5 @@ def scatter_bound_states(q, r, lam, eps_t: float, t0: float, t1: float,
     ).flip(0)
 
     metric, b_all = _b_metric(phi_samples, psi_samples)
-    n_best = torch.argmin(metric, dim=0)[None, :]       # [1, K]
+    n_best = torch.argmin(metric, dim=0)[None]          # [1, ..., K]
     return a, aprime, torch.take_along_dim(b_all, n_best, dim=0)[0]

@@ -73,32 +73,35 @@ def next_fft_length(n: int) -> int:
 
 
 def filter_mask(vals: torch.Tensor, bounding_box) -> torch.Tensor:
-    """Mask of values inside [re0, re1] x [im0, im1]; NaNs excluded."""
+    """Mask of values inside [re0, re1] x [im0, im1]; NaNs excluded. The
+    bounds are numbers or tensors that broadcast against ``vals`` (one box
+    a row of a batch: ``[B, 1]``)."""
     re, im = vals.real, vals.imag
     re0, re1, im0, im1 = bounding_box
     return (re >= re0) & (re <= re1) & (im >= im0) & (im <= im1)
 
 
 def merge_mask(vals: torch.Tensor, tol: float, mask=None) -> torch.Tensor:
-    """Keep the first of every cluster of points closer than ``tol``.
+    """Keep the first of every cluster of points closer than ``tol``, in
+    each row of ``vals [..., k]``.
 
-    Point i survives if no valid earlier point j lies within tol. Above
-    2048 points the distance matrix is built 1024 columns at a time so the
-    transient buffer stays bounded.
+    Point i survives if no valid earlier point j of its row lies within
+    tol. Above 2048 points the distance matrix is built 1024 columns at a
+    time so the transient buffer stays bounded.
     """
     k = vals.shape[-1]
     dev = vals.device
     if mask is None:
-        mask = torch.ones(k, dtype=torch.bool, device=dev)
+        mask = torch.ones(vals.shape, dtype=torch.bool, device=dev)
     idx = torch.arange(k, dtype=torch.int64, device=dev)
-    close_to_earlier = torch.zeros(k, dtype=torch.bool, device=dev)
+    close_to_earlier = torch.zeros(vals.shape, dtype=torch.bool, device=dev)
     chunk = k if k <= 2048 else 1024
     for c0 in range(0, k, chunk):
-        vc = vals[c0:c0 + chunk]
-        close = ((torch.abs(vals[:, None] - vc[None, :]) < tol)
-                 & mask[None, c0:c0 + chunk]
+        vc = vals[..., c0:c0 + chunk]
+        close = ((torch.abs(vals[..., :, None] - vc[..., None, :]) < tol)
+                 & mask[..., None, c0:c0 + chunk]
                  & (idx[None, c0:c0 + chunk] < idx[:, None]))
-        close_to_earlier |= torch.any(close, dim=1)
+        close_to_earlier |= torch.any(close, dim=-1)
     return mask & ~close_to_earlier
 
 
@@ -155,14 +158,16 @@ def resample(q: torch.Tensor, eps_t: float, delta) -> torch.Tensor:
 
 def bandlimit_violation(q: torch.Tensor, eps_t: float) -> torch.Tensor:
     """Square root of the share of spectral energy in the top 10% band
-    (the reference warns above sqrt(machine eps); misc.c:370-380)."""
+    (the reference warns above sqrt(machine eps); misc.c:370-380), for
+    each signal of ``q [..., D]``."""
     d = q.shape[-1]
-    spec = torch.fft.fft(q)
+    spec = torch.fft.fft(q, dim=-1)
     dlp = d // 20
     if dlp == 0:   # fewer than 20 samples: no band to inspect
-        return torch.zeros((), dtype=real_dtype_of(q.dtype), device=q.device)
-    hi = torch.cat([spec[d // 2 - 1 - dlp: d // 2 - 1],
-                    spec[d // 2 + 1: d // 2 + 1 + dlp]])
+        return torch.zeros(q.shape[:-1], dtype=real_dtype_of(q.dtype),
+                           device=q.device)
+    hi = torch.cat([spec[..., d // 2 - 1 - dlp: d // 2 - 1],
+                    spec[..., d // 2 + 1: d // 2 + 1 + dlp]], dim=-1)
     # the same trapezoid step eps_t for both norms
     num = l2norm2(hi, 0.0, hi.shape[-1] * eps_t)
     den = l2norm2(spec, 0.0, d * eps_t)

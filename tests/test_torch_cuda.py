@@ -250,3 +250,57 @@ def test_nsep_equal_on_card_and_cpu(cuda_device):
         assert got.device.type == "cuda" and got.shape == ref.shape
         dist = (got.cpu()[:, None] - ref[None, :]).abs()
         assert float(torch.maximum(dist.amin(0).max(), dist.amin(1).max())) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,deg,m", [(4, 8192, 8192), (12, 8192, 8192),
+                                         (3, 5000, 1237), (2, 97, 23)])
+@pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64])
+def test_repulsion_kernel_batched_equals_row_launches(cuda_device, batch,
+                                                      deg, m, dtype):
+    """K2 over a batch of rows in one launch (shared root indices, as the
+    batched Aberth sweeps give them): each row has the bits of a launch of
+    that row alone, and the batch is within 1e-5 of the plain version."""
+    rng = np.random.default_rng(19)
+    z_all = torch.as_tensor(_cplx(rng, (batch, deg))).to(dtype).to(
+        cuda_device)
+    idx = torch.as_tensor(np.sort(rng.choice(deg, size=m, replace=False))
+                          .astype(np.int32)).to(cuda_device)
+    z_t = z_all[:, idx.long()].contiguous()
+    before = kernels.LAUNCHES["repulsion_sum"]
+    got = kernels.repulsion_sum(z_all, z_t, idx)
+    assert kernels.LAUNCHES["repulsion_sum"] == before + 1
+    rows = torch.stack([kernels.repulsion_sum(za, zt, idx)
+                        for za, zt in zip(z_all, z_t)])
+    torch.cuda.synchronize()
+    assert torch.equal(torch.view_as_real(got), torch.view_as_real(rows))
+    assert _rel(got, kernels.repulsion_sum_plain(z_all, z_t, idx)) < 1e-5
+
+
+@pytest.mark.cuda
+def test_batched_full_spectrum_equal_on_card_and_cpu(cuda_device):
+    """make_batched_full_nsev on three sechs at D = 1024 (k_max 6): the
+    same masks on the card and on the CPU, bound states 5e-6, norming
+    constants 5e-5, rho/a/b 1e-10 of max(1, |.|) (tests/test_parallel.py's
+    bounds)."""
+    from fnft_tpu_torch.parallel import make_batched_full_nsev
+
+    d, m, t_span, xi_span = 1024, 256, (-16.0, 16.0), (-2.0, 2.0)
+    t = np.linspace(*t_span, d)
+    q = np.stack([1j * a / np.cosh(t) for a in (1.2, 2.3, 4.45)])
+    res = [make_batched_full_nsev(d, t_span, m, xi_span, k_max=6,
+                                  device=device)(q)
+           for device in ("cuda", "cpu")]
+    assert res[0].bound_states.device.type == "cuda"
+    assert torch.equal(res[0].bound_state_mask.cpu(),
+                       res[1].bound_state_mask)
+    assert res[1].bound_state_mask.sum(dim=1).tolist() == [1, 2, 4]
+    mask = res[1].bound_state_mask
+    for field, tol in (("bound_states", 5e-6), ("norming_constants", 5e-5)):
+        got, ref = getattr(res[0], field).cpu()[mask], getattr(res[1],
+                                                               field)[mask]
+        assert float((got - ref).abs().max()) < tol, field
+    for field in ("rho", "a", "b"):
+        got, ref = getattr(res[0], field).cpu(), getattr(res[1], field)
+        assert float((got - ref).abs().max()) <= 1e-10 * max(
+            1.0, float(ref.abs().max())), field
