@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from fnft_tpu_torch/csrc with nvcc, holds each
+Builds the CUDA kernels from fnft_tpu_torch/csrc with nvcc (no instance
+of K1T may spill, by ptxas's report), holds each
 against its plain PyTorch version at the shapes of the nsev main path
 and at ragged, batched and clustered ones, then drives
 ``fnft_tpu_torch.nsev`` (default options, 2SPLIT4B) on the Satsuma-Yajima
@@ -38,7 +39,9 @@ steps, two rows against B = 2 on CPU tensors); the C API
 (``libfnft_tpu_torch.so`` built with gcc, the unchanged
 examples/capi_example.c run with its arrays on the card, an in-process
 ctypes nsev against the port's); and each example twin of
-``fnft_tpu_torch/examples`` on the card. Each run
+``fnft_tpu_torch/examples`` on the card; then K1T alone against its
+plain version at the edges of its spans, with exponents near the ends of
+the fp64 range, two launches bit for bit. Each run
 prints its errors, three warm wall times, its launches and its peak device
 memory (the batched ones their spectra per second too). While the paths
 run, the inputs of each kernel's first launch at every distinct shape (and
@@ -426,30 +429,72 @@ def k1t_record(kernels, torch, p, w, g_out, launches, path) -> dict:
     return rec
 
 
+def check_k1t_instances(kernels) -> None:
+    """K1T's six instances as ptxas built them (from the build log): no
+    instance may spill; with each its launch configuration."""
+    for inst in kernels.fused_tree_levels_vjp_instances():
+        print(f"K1T {inst['dtype']} c={inst['c']}: {inst['registers']} "
+              f"registers, {inst['spill_stores']} B spill stores, "
+              f"{inst['spill_loads']} B spill loads, {inst['stack']} B "
+              f"stack; {inst['span']} subtrees a span, {inst['threads']} "
+              f"threads and {inst['smem']} B of shared memory a block, "
+              f"{inst['blocks_per_sm']} blocks an SM")
+        check(inst["spill_stores"] == 0 and inst["spill_loads"] == 0,
+              f"K1T {inst['dtype']} c={inst['c']} spills")
+
+
+def k1t_case(kernels, torch, p, g, normalize, what) -> None:
+    """K1T on ``p`` at the cotangent ``g`` (with the forward's exponents
+    when ``normalize``) against its plain version, to 1e-12 relative in
+    complex128 and 5e-6 in complex64; a second launch equal bit for bit."""
+    tol = {torch.complex128: 1e-12, torch.complex64: 5e-6}[p.dtype]
+    _, w = kernels.fused_tree_levels(p, 2, normalize=normalize)
+    w = w if normalize else None
+    got = kernels.fused_tree_levels_vjp(p, w, g, 2)
+    again = kernels.fused_tree_levels_vjp(p, w, g, 2)
+    ref = kernels.fused_tree_levels_vjp_plain(p, w, g, 2)
+    torch.cuda.synchronize()
+    dev_rel = rel_dev(got, ref)
+    check(dev_rel <= tol, f"K1T {what}: {dev_rel:.3e} > {tol}")
+    check(torch.equal(torch.view_as_real(got), torch.view_as_real(again)),
+          f"K1T {what}: two launches differ")
+    w_range = "" if w is None else f", w in [{int(w.min())}, {int(w.max())}]"
+    print(f"K1T {what}{w_range}: max rel dev {dev_rel:.3e}, two launches "
+          f"bitwise equal")
+
+
 def check_k1t(kernels, torch, dev) -> None:
-    """K1T against its plain version at [65536, 2, 2, c], c = 2, 3, 4, and
-    with lead axes, complex128 and complex64, with and without the
-    forward's exponents."""
+    """K1T against its plain version at [65536, 2, 2, c], c = 2, 3, 4, with
+    lead axes, and at the edges of its spans of 16 (fp64) or 32 (fp32)
+    subtrees: 197 subtrees (no multiple of either), 10 (less than one span)
+    and one; complex128 and complex64, with and without the forward's
+    exponents; then exponents near the ends of the fp64 range (|w| ~ 1000,
+    complex128). Every launch twice, bitwise equal."""
     rng = np.random.default_rng(6)
-    for shape in ((65536, 2, 2, 2), (65536, 2, 2, 3), (65536, 2, 2, 4),
-                  (2, 3, 196, 2, 2, 4)):
-        base = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+
+    def inputs(shape, scale=1.0):
+        base = (rng.normal(size=shape) + 1j * rng.normal(size=shape)) * scale
         n_out = shape[:-4] + (shape[-4] // 4, 2, 2, 4 * shape[-1] - 3)
-        g_base = rng.normal(size=n_out) + 1j * rng.normal(size=n_out)
-        for dtype, tol in ((torch.complex128, 1e-12), (torch.complex64, 5e-6)):
+        return base, rng.normal(size=n_out) + 1j * rng.normal(size=n_out)
+
+    for shape in ((65536, 2, 2, 2), (65536, 2, 2, 3), (65536, 2, 2, 4),
+                  (2, 3, 196, 2, 2, 4), (788, 2, 2, 3), (40, 2, 2, 3),
+                  (4, 2, 2, 4)):
+        base, g_base = inputs(shape)
+        for dtype in (torch.complex128, torch.complex64):
             p = torch.as_tensor(base).to(dtype).to(dev)
             g = torch.as_tensor(g_base).to(dtype).to(dev)
             for normalize in (False, True):
-                _, w = kernels.fused_tree_levels(p, 2, normalize=normalize)
-                w = w if normalize else None
-                got = kernels.fused_tree_levels_vjp(p, w, g, 2)
-                ref = kernels.fused_tree_levels_vjp_plain(p, w, g, 2)
-                torch.cuda.synchronize()
-                dev_rel = rel_dev(got, ref)
-                check(dev_rel <= tol, f"K1T {shape} {dtype} norm={normalize}"
-                      f": {dev_rel:.3e} > {tol}")
-                print(f"K1T {shape} {str(dtype)[6:]} normalize={normalize}: "
-                      f"max rel dev {dev_rel:.3e}")
+                k1t_case(kernels, torch, p, g, normalize,
+                         f"{shape} {str(dtype)[6:]} normalize={normalize}")
+    for scale in (2.0 ** 250, 2.0 ** -250):
+        for shape in ((788, 2, 2, 3), (4096, 2, 2, 4), (1024, 2, 2, 2)):
+            base, g_base = inputs(shape, scale)
+            p = torch.as_tensor(base).to(dev)
+            _, w = kernels.fused_tree_levels(p, 2, normalize=True)
+            check(int(w.abs().min()) >= 980, f"K1T {shape}: |w| < 980")
+            k1t_case(kernels, torch, p, torch.as_tensor(g_base).to(dev), True,
+                     f"{shape} complex128, inputs x 2^{round(np.log2(scale))}")
 
 
 def k1_main_path_record(kernels, torch, dev, d, launches) -> dict:
@@ -1859,9 +1904,12 @@ def training_step_full_width(ft, spy, torch, dev) -> None:
     check(rows_rel <= 1e-9, f"training step: rows vs CPU {rows_rel:.3e}")
 
     prof, fwd = device_profile(torch, step), device_profile(torch, forward)
+    check(prof["k1t_ms"] > 0, "profiled step: no K1T time seen")
     print(f"  profiled step: wall {prof['wall']:.4f} s, device "
           f"{prof['device_ms']:.3f} ms (busy {prof['busy']:.2f}%), K1 "
-          f"{prof['k1_ms']:.3f} ms, K1T {prof['k1t_ms']:.3f} ms; the "
+          f"{prof['k1_ms']:.3f} ms, K1T {prof['k1t_ms']:.3f} ms "
+          f"({100 * prof['k1t_ms'] / prof['device_ms']:.2f}% of the step's "
+          f"device time); the "
           f"forward alone (no graph): device {fwd['device_ms']:.3f} ms of "
           f"{fwd['wall']:.4f} s (busy {fwd['busy']:.2f}%), so backward and "
           f"update {prof['device_ms'] - fwd['device_ms']:.3f} ms")
@@ -2011,6 +2059,7 @@ def main() -> int:
     for line in log.read_text().splitlines() if log.exists() else []:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip())
+    check_k1t_instances(kernels)
 
     spy = KernelSpy(kernels, poly, roots)
     spy.install()
@@ -2119,7 +2168,7 @@ def main() -> int:
     phase("26 the examples on the card")
     examples_on_card(torch)
 
-    phase("27 K1T kernel vs plain")
+    phase("27 K1T kernel vs plain: span edges, |w| ~ 1000, bitwise")
     check_k1t(kernels, torch, dev)
 
     phase("28 kernels at every shape the paths gave them")

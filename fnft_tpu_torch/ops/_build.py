@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -89,6 +90,32 @@ def build() -> Path:
     return so
 
 
+def ptxas_report(kernel: str) -> list[dict]:
+    """What ptxas said of each compiled kernel whose (mangled) name holds
+    ``kernel``, from ``build.log`` of the current library's build: one
+    dict a kernel with its name, registers and bytes of stack frame,
+    spill stores and spill loads. Raises if the log is not that build's."""
+    text = (BUILD_DIR / "build.log").read_text()
+    if library_path().stem not in text:
+        raise RuntimeError(f"{BUILD_DIR / 'build.log'} is not the log of "
+                           f"{library_path().name}")
+    report, entry, props = {}, None, None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            entry = m.group(1)
+        elif m := re.search(r"Function properties for (\S+)", line):
+            props = m.group(1)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", line):
+            report.setdefault(props, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        elif m := re.search(r"Used (\d+) registers", line):
+            report.setdefault(entry, {})["registers"] = int(m.group(1))
+    return [{"kernel": name, **info} for name, info in report.items()
+            if name and kernel in name]
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
@@ -102,6 +129,9 @@ def library() -> ctypes.CDLL:
             lib.fnft_fused_tree_levels_bwd.argtypes = [
                 vp, vp, vp, vp, i64, i32, i32, i32, i32, vp]
             lib.fnft_fused_tree_levels_bwd.restype = i32
+            lib.fnft_fused_tree_levels_bwd_config.argtypes = [
+                i32, i32, ctypes.POINTER(i32)]
+            lib.fnft_fused_tree_levels_bwd_config.restype = i32
             lib.fnft_repulsion_scratch_rows.argtypes = [
                 i32, i32, ctypes.POINTER(i32)]
             lib.fnft_repulsion_scratch_rows.restype = i32

@@ -208,12 +208,16 @@ def fused_tree_levels_vjp(p: torch.Tensor, w, g_out: torch.Tensor,
     the forward did not normalize): ``[..., n, 2, 2, c]``.
 
     K1 has no backward kernel on the TPU (the JAX package differentiates
-    its plain levels). On the H100 (``csrc/tree_levels_bwd.cu``, K1T) one
-    thread owns one subtree: it reads the 4 input matrices and the
-    cotangent block once, recomputes the two level-1 products in
-    registers and writes the four input gradients once, so it is bound by
-    those bytes. A CPU tensor goes to
-    :func:`fused_tree_levels_vjp_plain`.
+    its plain levels). On the H100 (``csrc/tree_levels_bwd.cu``, K1T)
+    persistent blocks walk over spans of 16 subtrees (fp64; 32 in fp32),
+    copied with their cotangent rows and exponents into shared memory by
+    coalesced, double-buffered copies. A team of eight threads takes a
+    subtree in three steps, its intermediates in shared memory: the two
+    level-1 products, their gradients, then the four input gradients,
+    which leave through shared memory in coalesced stores. Each input is
+    read from device memory once and each gradient written once, so it is
+    bound by those bytes; no atomics, so every launch has the same bits.
+    A CPU tensor goes to :func:`fused_tree_levels_vjp_plain`.
     """
     if not _route(p):
         return fused_tree_levels_vjp_plain(p, w, g_out, levels)
@@ -244,6 +248,38 @@ def fused_tree_levels_vjp(p: torch.Tensor, w, g_out: torch.Tensor,
     _check_launch("fused_tree_levels_bwd", err)
     LAUNCHES["fused_tree_levels_bwd"] += 1
     return g_in
+
+
+def fused_tree_levels_vjp_instances() -> list[dict]:
+    """K1T's six instances (complex128 and complex64, c = 2, 3, 4) as built
+    for the current CUDA device: what ptxas reported (registers, bytes of
+    stack frame and spill stores and loads, from the build log) and the
+    launch configuration (subtrees a span, threads and dynamic shared
+    memory a block, blocks an SM)."""
+    import re
+
+    from fnft_tpu_torch.ops import _build
+
+    lib = _build.library()
+    ptxas = {}
+    for rep in _build.ptxas_report("fused_levels_bwd_kernel"):
+        m = re.search(r"fused_levels_bwd_kernelI([df])Li(\d+)E", rep["kernel"])
+        ptxas[(m.group(1) == "d", int(m.group(2)))] = rep
+    out = []
+    for is_double in (True, False):
+        for c in (2, 3, 4):
+            cfg = (ctypes.c_int * 4)()
+            _check_launch("fused_tree_levels_bwd_config",
+                          lib.fnft_fused_tree_levels_bwd_config(
+                              c, int(is_double), cfg))
+            rep = ptxas[(is_double, c)]
+            out.append({
+                "dtype": "complex128" if is_double else "complex64", "c": c,
+                "registers": rep["registers"], "stack": rep["stack"],
+                "spill_stores": rep["spill_stores"],
+                "spill_loads": rep["spill_loads"], "span": cfg[0],
+                "threads": cfg[1], "smem": cfg[2], "blocks_per_sm": cfg[3]})
+    return out
 
 
 # ---------------------------------------------------------------------------

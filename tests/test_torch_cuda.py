@@ -309,14 +309,18 @@ def test_batched_full_spectrum_equal_on_card_and_cpu(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(65536, 2, 2, 2), (65536, 2, 2, 3),
                                    (65536, 2, 2, 4), (3, 256, 2, 2, 3),
-                                   (2, 3, 196, 2, 2, 4), (64, 4096, 2, 2, 3)])
+                                   (2, 3, 196, 2, 2, 4), (64, 4096, 2, 2, 3),
+                                   (788, 2, 2, 3), (40, 2, 2, 3),
+                                   (4, 2, 2, 4)])
 @pytest.mark.parametrize("dtype,tol", [(torch.complex128, 1e-12),
                                        (torch.complex64, 5e-6)])
 @pytest.mark.parametrize("normalize", [False, True])
 def test_fused_levels_backward_kernel_matches_plain(cuda_device, shape, dtype,
                                                     tol, normalize):
     """K1T against the plain VJP, with the forward's exponents; lead axes
-    fold into the subtree count as in K1."""
+    fold into the subtree count as in K1. 197, 10 and 1 subtrees end
+    inside a span of 16 (fp64) or 32 (fp32) subtrees. No atomics and a
+    fixed order of every sum: a second launch gives the same bits."""
     rng = np.random.default_rng(sum(shape) + 7)
     p = torch.as_tensor(_cplx(rng, shape)).to(dtype).to(cuda_device)
     _, w = kernels.fused_tree_levels(p, 2, normalize=normalize)
@@ -324,9 +328,44 @@ def test_fused_levels_backward_kernel_matches_plain(cuda_device, shape, dtype,
                         ).to(dtype).to(cuda_device)
     w = w if normalize else None
     got = kernels.fused_tree_levels_vjp(p, w, g, 2)
+    again = kernels.fused_tree_levels_vjp(p, w, g, 2)
     ref = kernels.fused_tree_levels_vjp_plain(p, w, g, 2)
     torch.cuda.synchronize()
     assert _rel(got, ref) < tol
+    assert torch.equal(torch.view_as_real(got), torch.view_as_real(again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(788, 2, 2, 3), (4096, 2, 2, 4),
+                                   (1024, 2, 2, 2)])
+@pytest.mark.parametrize("scale", [2.0 ** 250, 2.0 ** -250])
+def test_fused_levels_backward_kernel_large_exponents(cuda_device, shape,
+                                                      scale):
+    """Exponents near the ends of the fp64 range (|w| ~ 1000): the rescale
+    2^-w of the cotangent is exact in the kernel as in the plain VJP."""
+    rng = np.random.default_rng(sum(shape) + 9)
+    p = torch.as_tensor(_cplx(rng, shape) * scale).to(cuda_device)
+    _, w = kernels.fused_tree_levels(p, 2, normalize=True)
+    g = torch.as_tensor(_cplx(rng, tuple(w.shape) + (2, 2, 4 * shape[-1] - 3))
+                        ).to(cuda_device)
+    assert int(w.abs().min()) >= 980
+    got = kernels.fused_tree_levels_vjp(p, w, g, 2)
+    ref = kernels.fused_tree_levels_vjp_plain(p, w, g, 2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(torch.view_as_real(got)).all())
+    assert _rel(got, ref) < 1e-12
+
+
+@pytest.mark.cuda
+def test_fused_levels_backward_kernel_does_not_spill(cuda_device):
+    """ptxas's report in the build log: none of K1T's six instances (fp64
+    and fp32 at c = 2, 3, 4) spills, and each fits on an SM."""
+    insts = kernels.fused_tree_levels_vjp_instances()
+    assert sorted((i["dtype"], i["c"]) for i in insts) == sorted(
+        (d, c) for d in ("complex128", "complex64") for c in (2, 3, 4))
+    for inst in insts:
+        assert inst["spill_stores"] == 0 and inst["spill_loads"] == 0, inst
+        assert inst["blocks_per_sm"] >= 1, inst
 
 
 @pytest.mark.cuda
