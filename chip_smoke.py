@@ -41,7 +41,19 @@ examples/capi_example.c run with its arrays on the card, an in-process
 ctypes nsev against the port's); and each example twin of
 ``fnft_tpu_torch/examples`` on the card; then K1T alone against its
 plain version at the edges of its spans, with exponents near the ends of
-the fp64 range, two launches bit for bit. Each run
+the fp64 range, two launches bit for bit. Then the D-sharded transforms of
+``fnft_tpu_torch.parallel``: the script spawns a world of 4 ranks that
+share the card over gloo (every exchange staged through the host) and
+runs an NCCL world of one rank in its own process; the contspec at
+D = M = 2^20 (S = 4, S = 1 and the single-process replica at S = 8, each
+against the unsharded contspec and the replica of its own S), 4SPLIT4B
+and kdvv at D = 2^16, the bound states, nsep (plane wave, 2SPLIT4B) and
+the inverse (distributed four-step FFT) at D = 2^16, and the sharded
+training step at B = 64 x D = M = 4096 on a (data 2, seq 2) mesh (its
+gradient against the single-rank one), each with its transport, walls,
+peak memory a rank and the unsharded walls beside; each rank keeps its
+kernel inputs and counts under a KernelSpy of its own, and the kernels
+are held against their plain versions at those shapes too. Each run
 prints its errors, three warm wall times, its launches and its peak device
 memory (the batched ones their spectra per second too). While the paths
 run, the inputs of each kernel's first launch at every distinct shape (and
@@ -568,14 +580,17 @@ def k2_main_path_record(kernels, torch, dev, launches) -> dict:
                      "SPLIT4B D=65536, seeded roots")
 
 
-def records_of_kept(spy, torch, done) -> list:
-    """Every shape a driven path gave a kernel, on the inputs of its first
-    launch there: kernel against plain version, and a record with that
-    shape's launches in the run of the path where it was first seen.
-    Shapes in ``done`` have their record already and are compared only."""
+def records_of_kept(spy, torch, done, tags=None) -> list:
+    """Every shape a driven path gave a kernel (of the paths tagged
+    ``tags``, default all), on the inputs of its first launch there:
+    kernel against plain version, and a record with that shape's launches
+    in the run of the path where it was first seen. Shapes in ``done`` have
+    their record already and are compared only."""
     recs = []
     for key, kept in spy.kept.items():
-        name, shape, _ = key
+        name, shape, tag = key
+        if tags is not None and (tag not in tags or key in done):
+            continue
         timed = key not in done
         if name == "fused_tree_levels":
             p, levels = kept["args"]
@@ -594,6 +609,7 @@ def records_of_kept(spy, torch, done) -> list:
             rec = k2_record(spy.kernels, torch, z_all, z_t, idx,
                             kept["launches"], kept["path"], timed)
         if rec is not None:
+            rec["tag"] = tag     # the transform ("dshard": a sharded path)
             recs.append(rec)
     return recs
 
@@ -1814,6 +1830,15 @@ def gradients_on_card(ft, spy, torch, dev) -> None:
     print(f"gradient D=M=2^20: " + timing(*run))
 
 
+def training_batch(b: int, d: int) -> np.ndarray:
+    """The training steps' batch ``[b, d]`` on T = (-8, 8): dryrun_multichip's
+    sechs i (0.8 + 0.1 k) / cosh(t), k cycled over its 4 amplitudes, each
+    row with its own frequency shift exp(i (0.1 + 0.025 k) t)."""
+    t = np.linspace(-8.0, 8.0, d)
+    return np.stack([1j * (0.8 + 0.1 * (k % 4)) * np.exp(
+        1j * (0.1 + 0.025 * k) * t) / np.cosh(t) for k in range(b)])
+
+
 def training_step_full_width(ft, spy, torch, dev) -> None:
     """The NFDM inverse-design training step of __graft_entry__'s
     dryrun_multichip at full width on one card: make_nsev_batch_fn
@@ -1843,10 +1868,7 @@ def training_step_full_width(ft, spy, torch, dev) -> None:
     d = m = 4096
     b, steps = 64, 25
     t_span, xi_span = (-8.0, 8.0), (-2.0, 2.0)
-    t = np.linspace(*t_span, d)
-    q0 = np.stack([1j * (0.8 + 0.1 * (k % 4)) * np.exp(1j * (0.1 + 0.025 * k)
-                                                        * t) / np.cosh(t)
-                   for k in range(b)])
+    q0 = training_batch(b, d)
     p_start = 0.7 * torch.as_tensor(np.stack([q0.real, q0.imag]))
 
     def trainer(device, rows):
@@ -2027,6 +2049,409 @@ def examples_on_card(torch) -> None:
         check(not missing, f"example {name}: {missing} not printed:\n{text}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 29-35: the D-sharded transforms of fnft_tpu_torch.parallel
+# ---------------------------------------------------------------------------
+
+DSHARD_RANKS = 4
+GLOO = f"gloo, host-staged, {DSHARD_RANKS} ranks on one H100"
+NCCL = "nccl, 1 rank"
+
+
+def dshard_inputs(torch, dev) -> dict:
+    """The sharded phases' inputs, built the same way in every process:
+    the sech at D = M = 2^20 (phase 7's signal and XI), the sech at 2^16
+    (4SPLIT4B, bound states), kdvv's squared sech at 2^16 (m = 2^12),
+    the plane wave at 2^16 and the inverse's 1.1 i sech at 2^16 on
+    T = (-20, 20) and (-8, 8), and the training step's batch B = 64 x
+    D = M = 4096 (phase 24's: amplitudes 0.8-1.1; dryrun_multichip's own
+    batch, i (0.8 + 0.1 k) sech, grows to amplitude 7.1 at k = 63)."""
+    from fnft_tpu_torch.testcases import (NsevTestcase, kdvv_sech_case,
+                                          nsep_plane_wave_case, nsev_testcase)
+
+    big = nsev_testcase(NsevTestcase.SECH_FOCUSING, 1 << 20)
+    mid = nsev_testcase(NsevTestcase.SECH_FOCUSING, 1 << 16)
+    u, kdv_t, kdv_xi, kdv_rho = kdvv_sech_case(1 << 16, 1 << 12)
+    pw, pw_t, *_ = nsep_plane_wave_case(1 << 16)
+    inv = {t_span: 1.1j / np.cosh(np.linspace(*t_span, 1 << 16))
+           for t_span in ((-20.0, 20.0), (-8.0, 8.0))}
+    on = lambda x: torch.as_tensor(x).to(dev)   # noqa: E731
+    return {"big": (on(big.q), big.t_span, big.xi_span),
+            "mid": (on(mid.q), mid.t_span, mid.xi_span),
+            "kdvv": (on(u), kdv_t, kdv_xi, kdv_rho),
+            "nsep": (on(pw), pw_t),
+            "inverse": {t: on(q) for t, q in inv.items()},
+            "train": on(training_batch(64, 4096))}
+
+
+def dshard_nsep_opts(ft):
+    """tests/test_dshard_nsep.py's at-scale options, with 2SPLIT4B."""
+    return ft.NsepOpts(localization=ft.Localization.SUBSAMPLE_AND_REFINE,
+                       filtering=ft.PointFilter.MANUAL,
+                       bounding_box=(-5.0, 5.0, -5.0, 5.0),
+                       discretization=ft.Discretization.SPLIT4B)
+
+
+def dshard_paths(ft, spy, torch, dev, seq, grid=None) -> dict:
+    """Drive the sharded transforms in this rank (:func:`drive`, tag
+    "dshard"; each call starts with a barrier, so that the ranks start
+    together); with ``grid`` only the contspec at 2^20 (the NCCL world of
+    one). Returns, by path, (this rank's result, cold, walls, launches,
+    peak MiB)."""
+    import torch.distributed as dist
+    from fnft_tpu_torch import parallel as par
+    from fnft_tpu_torch.entry import dryrun_rank, sharded_train_step
+    from fnft_tpu_torch.ops.fscatter import fscatter
+
+    inp = dshard_inputs(torch, dev)
+    s = seq.size()
+    out = {}
+
+    def run(key, path, call, warm_=3):
+        out[key] = drive(spy, torch, path, lambda: (dist.barrier(), call())[1],
+                         "dshard", warm_)
+
+    q, t_span, xi_span = inp["big"]
+    fn = par.make_dshard_contspec(1 << 20, t_span, 1 << 20, xi_span, seq)
+    run("contspec", f"dshard contspec SPLIT4B D=M=2^20, S={s}",
+        lambda: fn(q)["rho"])
+    if grid is None:
+        return out
+    q, t_span, xi_span = inp["mid"]
+    fn4 = par.make_dshard_contspec(1 << 16, t_span, 1 << 16, xi_span, seq,
+                                   disc=ft.Discretization.SPLIT4B4)
+    run("4split4b", f"dshard contspec 4SPLIT4B D=M=2^16, S={s}",
+        lambda: fn4(q)["rho"])
+    u, kt, kxi, _ = inp["kdvv"]
+    fk = par.make_dshard_kdvv_contspec(1 << 16, kt, 1 << 12, kxi, seq)
+    run("kdvv", f"dshard kdvv SPLIT8B D=2^16 m=2^12, S={s}",
+        lambda: fk(u)["rho"])
+    run("boundstates", f"dshard bound states SPLIT4B D=2^16, S={s}",
+        lambda: par.dshard_boundstates_reference(q, t_span, seq))
+    pw, pw_t = inp["nsep"]
+    run("nsep", f"dshard nsep SPLIT4B D=2^16, S={s}",
+        lambda: par.dshard_nsep_reference(pw, pw_t, seq,
+                                          opts=dshard_nsep_opts(ft)))
+    # every rank peels the sub-threshold blocks itself (replicated, as in
+    # the JAX package), so four ranks on one card take ~17 s a call: one
+    # warm call for the second grid only
+    for warm_, (t_inv, qi) in zip((0, 1), inp["inverse"].items()):
+        eps_t = (t_inv[1] - t_inv[0]) / ((1 << 16) - 1)
+        with spy.aside():   # the input's transfer matrix is not the path's
+            tm, _ = fscatter(qi, -torch.conj(qi), eps_t,
+                             ft.Discretization.SPLIT2A, normalize=False)
+        run(f"inverse {t_inv}", f"dshard finvscatter D=2^16 T={t_inv}, S={s}",
+            lambda: par.dshard_finvscatter(tm, eps_t, 1, seq), warm_)
+    q0 = inp["train"]
+    run("train", "dshard training step B=64 D=M=4096, (data 2, seq 2)",
+        lambda: sharded_train_step(q0, grid, 4096)["grad"])
+    run("dryrun", "dshard dryrun_multichip's rank, B=64 D=M=4096",
+        lambda: dryrun_rank(dist.get_rank(), dist.get_world_size(), "cuda",
+                            64, 4096), 0)
+    return out
+
+
+def dshard_rank(rank, world) -> dict:
+    """One rank of the gloo world on the card: the sharded paths under a
+    KernelSpy of its own; rank 0 also hands back the inputs it kept."""
+    import torch
+
+    from fnft_tpu_torch import parallel as par
+    from fnft_tpu_torch.ops import _build, kernels, poly, roots
+    import fnft_tpu_torch as ft
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.library()
+    dev = torch.device("cuda", 0)
+    spy = KernelSpy(kernels, poly, roots)
+    spy.install()
+    out = dshard_paths(ft, spy, torch, dev, par.make_mesh(("seq",)),
+                       par.make_mesh(("data", "seq")))
+    spy.remove()
+    out["counts"] = {key: kept["launches"] for key, kept in spy.kept.items()}
+    if rank == 0:
+        out["kept"] = {key: dict(kept) for key, kept in spy.kept.items()}
+    return out
+
+
+def plain_walls(spy, torch, call, warm=3):
+    """(result, cold, warm walls, peak MiB) of an unsharded call, with the
+    spy aside (the sharded path's reference is not the path)."""
+    with spy.aside():
+        return _walls(torch, call, warm)
+
+
+def _walls(torch, call, warm):
+    t0 = time.perf_counter()
+    res = call()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(warm):
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return res, cold, walls, torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def sharded_timing(transport, runs, unsharded) -> str:
+    """One line for a sharded path: transport, the slowest rank's cold and
+    warm walls, launches of one run (summed over the ranks), peak MiB per
+    rank, and the unsharded walls beside."""
+    cold = max(r[1] for r in runs)
+    walls = [max(r[2][i] for r in runs) for i in range(len(runs[0][2]))]
+    launches = {k: sum(r[3][k] for r in runs) for k in runs[0][3]}
+    peak = max(r[4] for r in runs)
+
+    def warm(ts):
+        return (" ".join(f"{t:.4f}" for t in ts) + " s") if ts else "none"
+
+    return (f"[{transport}] cold {cold:.4f} s, warm {warm(walls)}, "
+            f"launches {launches}, peak {peak:.1f} MiB a rank; unsharded: "
+            f"cold {unsharded[1]:.4f} s, warm {warm(unsharded[2])}, peak "
+            f"{unsharded[3]:.1f} MiB")
+
+
+def merge_kept(spy, torch, dev, world) -> None:
+    """The world's kept kernel inputs (rank 0's, on the card) into the
+    parent's spy, each with its launches summed over the ranks."""
+    for key, kept in world[0]["kept"].items():
+        if key in spy.kept:
+            continue
+        args = tuple(torch.as_tensor(a).to(dev) if isinstance(a, np.ndarray)
+                     else a for a in kept["args"])
+        spy.kept[key] = {"args": args, "kwargs": kept["kwargs"],
+                         "path": kept["path"] + f", {DSHARD_RANKS} ranks",
+                         "launches": sum(r["counts"][key] for r in world)}
+
+
+def check_launched(runs, path, names) -> None:
+    for name in names:
+        check(all(r[3][name] > 0 for r in runs),
+              f"{path}: {name} not launched in every rank: "
+              f"{[r[3] for r in runs]}")
+
+
+def dshard_contspec_phase(ft, spy, torch, dev, world) -> None:
+    """Phase 29: the gloo world's contspec at D = M = 2^20 and the NCCL
+    world of one (this process), against the unsharded nsev contspec on
+    the card (1e-11, the JAX tests' bound), each against the replica of
+    its own S (1e-13), and the replicas at S = 1, 4, 8 to each other."""
+    import torch.distributed as dist
+    from fnft_tpu_torch import parallel as par
+    from fnft_tpu_torch.parallel.mesh import _free_port
+
+    q, t_span, xi_span = dshard_inputs(torch, dev)["big"]
+    d = m = 1 << 20
+    unsharded = plain_walls(spy, torch, lambda: ft.nsev(
+        q, t_span, m=m, xi_span=xi_span,
+        want_bound_states=False).reflection_coefficient)
+    un = unsharded[0]
+    replicas = {}
+    for s in (1, 4):
+        with spy.aside():
+            replicas[s] = par.dshard_contspec_reference(q, d, t_span, m,
+                                                        xi_span, s=s)["rho"]
+    replicas[8], *rep8 = drive(
+        spy, torch, "dshard replica S=8 D=M=2^20",
+        lambda: par.dshard_contspec_reference(q, d, t_span, m, xi_span,
+                                              s=8)["rho"], "dshard")
+    check(rep8[2]["fused_tree_levels"] == 1, f"replica S=8: {rep8[2]}")
+    runs = [r["contspec"] for r in world]
+    rho4 = torch.as_tensor(np.concatenate([r[0] for r in runs])).to(dev)
+    check_launched(runs, "contspec S=4", ("fused_tree_levels",))
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        nccl = dshard_paths(ft, spy, torch, dev, par.make_mesh(("seq",)))
+    finally:
+        dist.destroy_process_group()
+    rho1 = nccl["contspec"][0]
+    check_launched([nccl["contspec"]], "contspec S=1 nccl",
+                   ("fused_tree_levels",))
+    errs = {"S=4 vs unsharded": rel_abs(rho4, un),
+            "S=1 vs unsharded": rel_abs(rho1, un),
+            "S=4 vs replica S=4": rel_abs(rho4, replicas[4]),
+            "S=1 vs replica S=1": rel_abs(rho1, replicas[1]),
+            "replica S=8 vs unsharded": rel_abs(replicas[8], un),
+            "replica S=8 vs S=4": rel_abs(replicas[8], replicas[4])}
+    print("  max |difference|: " + ", ".join(f"{k} {v:.3e}"
+                                              for k, v in errs.items()))
+    for key, err in errs.items():
+        bound_ = 1e-13 if "vs replica" in key else 1e-11
+        check(err <= bound_, f"contspec 2^20 {key}: {err:.3e} > {bound_}")
+    print(f"  S=4: " + sharded_timing(GLOO, runs, unsharded))
+    print(f"  S=1: " + sharded_timing(NCCL, [nccl["contspec"]], unsharded))
+    print(f"  replica S=8 in one process: " + timing(*rep8))
+
+
+def rel_abs(got, ref) -> float:
+    """Max absolute difference of two spectra (numpy or tensors)."""
+    got = torch_np(got)
+    return float(np.max(np.abs(got - torch_np(ref))))
+
+
+def torch_np(x):
+    return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+
+def dshard_world_phases(ft, spy, torch, dev, world) -> None:
+    """Phases 30-34: the gloo world's other paths against the same
+    transforms unsharded on the card."""
+    from fnft_tpu_torch.entry import rho_pipeline
+    from fnft_tpu_torch.ops import finvscatter as fi
+    from fnft_tpu_torch.ops.fscatter import fscatter
+
+    inp = dshard_inputs(torch, dev)
+    blocks = lambda key: np.concatenate([r[key][0] for r in world])  # noqa
+
+    phase("30 4SPLIT4B and kdvv (SPLIT8B) D-sharded at D=2^16, S=4")
+    q, t_span, xi_span = inp["mid"]
+    un = plain_walls(spy, torch, lambda: ft.nsev(
+        q, t_span, m=1 << 16, xi_span=xi_span, want_bound_states=False,
+        opts=ft.NsevOpts(discretization=ft.Discretization.SPLIT4B4)
+    ).reflection_coefficient)
+    err = rel_abs(blocks("4split4b"), un[0])
+    runs = [r["4split4b"] for r in world]
+    check_launched(runs, "4SPLIT4B", ("fused_tree_levels",))
+    print(f"  4SPLIT4B D=M=2^16: vs unsharded {err:.3e} <= 1e-11; "
+          + sharded_timing(GLOO, runs, un))
+    check(err <= 1e-11, f"4SPLIT4B sharded: {err:.3e}")
+    u, kt, kxi, exact = inp["kdvv"]
+    un = plain_walls(spy, torch, lambda: ft.kdvv(
+        u, kt, m=1 << 12, xi_span=kxi).reflection_coefficient)
+    rho = blocks("kdvv")
+    err = rel_abs(rho, un[0]) / float(un[0].abs().max())
+    exact_err = float(np.linalg.norm(rho - exact) / np.linalg.norm(exact))
+    # 1e-10, not the JAX tests' 1e-11 at D = 1024: sixteen more tree levels
+    # of non-unitary real products (kdvv's two routes differ by 1.3e-10
+    # on the card, ROADMAP)
+    print(f"  kdvv 2SPLIT8B D=2^16: vs unsharded {err:.3e} <= 1e-10 of "
+          f"max |rho|, error {exact_err:.3e} <= {BOUND_KDVV_SPLIT8B}; "
+          + sharded_timing(GLOO, [r["kdvv"] for r in world], un))
+    check(err <= 1e-10 and exact_err <= BOUND_KDVV_SPLIT8B,
+          f"kdvv sharded: {err:.3e}, {exact_err:.3e}")
+
+    phase("31 D-sharded bound states at D=2^16, S=4")
+    un = plain_walls(spy, torch, lambda: ft.nsev(q, t_span, m=0))
+    ref_bs, ref_nc = (torch_np(x) for x in (un[0].bound_states,
+                                           un[0].norming_constants))
+    bs, nc = world[0]["boundstates"][0]
+    for r in world[1:]:
+        check(np.array_equal(r["boundstates"][0][0], bs),
+              "bound states differ between ranks")
+    o, o_ref = np.argsort(bs.imag), np.argsort(ref_bs.imag)
+    check(bs.size == ref_bs.size == 3, f"bound states {bs} vs {ref_bs}")
+    e_bs = float(np.max(np.abs(bs[o] - ref_bs[o_ref])))
+    e_nc = float(np.max(np.abs(nc[o] - ref_nc[o_ref])
+                        / np.maximum(np.abs(ref_nc[o_ref]), 1e-2)))
+    runs = [r["boundstates"] for r in world]
+    check_launched(runs, "bound states", ("fused_tree_levels",
+                                          "repulsion_sum"))
+    print(f"  bound states vs nsev's: {e_bs:.3e} <= 1e-9, norming constants "
+          f"{e_nc:.3e} <= 1e-7 relative; " + sharded_timing(GLOO, runs, un))
+    check(e_bs <= 1e-9 and e_nc <= 1e-7, f"bound states: {e_bs}, {e_nc}")
+
+    phase("32 D-sharded nsep (plane wave, 2SPLIT4B) at D=2^16, S=4")
+    pw, pw_t = inp["nsep"]
+    un = plain_walls(spy, torch, lambda: ft.nsep(pw, pw_t,
+                                            opts=dshard_nsep_opts(ft)))
+    main, aux = world[0]["nsep"][0]
+    for r in world[1:]:
+        check(np.array_equal(r["nsep"][0][0], main), "nsep ranks differ")
+    from fnft_tpu_torch.testcases import nsep_plane_wave_case
+    _, _, _, exact_m, exact_a, box = nsep_plane_wave_case(1 << 16)
+
+    def outside(v):
+        return v[~((v.real > box[0]) & (v.real < box[1]) & (v.imag > box[2])
+                   & (v.imag < box[3]))]
+
+    def hausdorff(a, b):
+        dd = np.abs(a[:, None] - b[None, :])
+        return float(max(dd.min(axis=1).max(), dd.min(axis=0).max()))
+
+    d_m = hausdorff(outside(main), outside(torch_np(un[0].main_spectrum)))
+    d_a = hausdorff(aux, torch_np(un[0].aux_spectrum))
+    in_box = lambda v: v[(np.abs(v.real) < 5) & (np.abs(v.imag) < 5)]  # noqa
+    err_m = max(float(np.min(np.abs(main - e))) for e in in_box(exact_m)
+                if abs(e.real + 1.5) > 0.2 or abs(e.imag) > 0.2)
+    err_a = max(float(np.min(np.abs(aux - e))) for e in in_box(exact_a)
+                if abs(e.imag) > 0.2)
+    runs = [r["nsep"] for r in world]
+    check_launched(runs, "nsep", ("fused_tree_levels", "repulsion_sum"))
+    print(f"  vs the card's nsep: main {d_m:.3e} <= 1e-5, aux {d_a:.3e} <= "
+          f"1e-10 (Hausdorff); vs the closed form: main {err_m:.3e}, aux "
+          f"{err_a:.3e} <= 2e-3; " + sharded_timing(GLOO, runs, un))
+    check(d_m <= 1e-5 and d_a <= 1e-10 and err_m < 2e-3 and err_a < 2e-3,
+          f"nsep sharded: {d_m}, {d_a}, {err_m}, {err_a}")
+
+    phase("33 D-sharded inverse (distributed four-step FFT) at D=2^16, S=4")
+    for (t_inv, qi), bound_ in zip(inp["inverse"].items(), (2e-6, 1e-10)):
+        eps_t = (t_inv[1] - t_inv[0]) / ((1 << 16) - 1)
+        with spy.aside():
+            tm, _ = fscatter(qi, -torch.conj(qi), eps_t,
+                             ft.Discretization.SPLIT2A, normalize=False)
+        un = plain_walls(spy, torch, lambda: fi.finvscatter(tm, eps_t, 1),
+                         warm=0)
+        got = blocks_replicated(world, f"inverse {t_inv}")
+        err, err_un = rel_abs(got, qi), rel_abs(un[0], qi)
+        dev_ = rel_abs(got, un[0])
+        runs = [r[f"inverse {t_inv}"] for r in world]
+        # on T = (-20, 20) the peel loses ~1e-6 in either driver, and their
+        # products' rounding orders part them by ~1e-9: each is held to
+        # phase 18's bound, and so is their difference
+        print(f"  T={t_inv}: max error {err:.3e} < {bound_} (the card's "
+              f"finvscatter {err_un:.3e}), max |difference| {dev_:.3e} < "
+              f"{bound_}; " + sharded_timing(GLOO, runs, un))
+        check(err < bound_ and dev_ < bound_,
+              f"inverse sharded T={t_inv}: {err}, {dev_}")
+
+    phase("34 the sharded training step: B=64 x D=M=4096 on (data 2, seq 2)")
+    q0 = inp["train"]
+    rho = rho_pipeline(4096, 4096, (-8.0, 8.0), (-2.0, 2.0))
+    with torch.no_grad(), spy.aside():
+        tgt = rho(torch.roll(q0, 3, -1))
+    p0 = torch.stack([q0.real, q0.imag])
+
+    def step():
+        p = p0.clone().requires_grad_(True)
+        loss = torch.sum(torch.abs(rho(p[0] + 1j * p[1]) - tgt) ** 2) / (
+            64 * 4096)
+        loss.backward()
+        return p.grad
+
+    un = plain_walls(spy, torch, step)
+    rows = [np.concatenate([world[2 * i + j]["train"][0] for j in range(2)],
+                           axis=-1) for i in range(2)]
+    grad = np.concatenate(rows, axis=1)
+    g_rel = rel_abs(grad, un[0]) / float(un[0].abs().max())
+    runs = [r["train"] for r in world]
+    check_launched(runs, "training step", ("fused_tree_levels",
+                                           "fused_tree_levels_bwd"))
+    losses = [r["dryrun"][0]["train"]["loss"] for r in world]
+    print(f"  gradient vs the single-rank gradient: {g_rel:.3e} <= 1e-10 "
+          f"relative; loss {losses[0]:.10e} (the same in every rank); "
+          + sharded_timing(GLOO, runs, un))
+    check(g_rel <= 1e-10 and len(set(losses)) == 1,
+          f"training step: gradient {g_rel:.3e}, losses {losses}")
+    dry = world[0]["dryrun"][0]
+    print(f"  dryrun_multichip's other transforms: bound states "
+          f"{dry['bound_states'][0]}, nsep main {dry['nsep_main']}, aux "
+          f"{dry['nsep_aux']}, inverse error {dry['inverse_err']:.3e}")
+    check(dry["inverse_err"] < 1e-3, "dry run inverse")
+
+
+def blocks_replicated(world, key):
+    """A replicated result: the same in every rank; rank 0's."""
+    got = world[0][key][0]
+    for r in world[1:]:
+        check(np.array_equal(r[key][0], got), f"{key}: ranks differ")
+    return got
+
+
 def main() -> int:
     import torch
 
@@ -2202,6 +2627,30 @@ def main() -> int:
               f"{name} never ran at {shape} on {tag or 'nsev/kdvv'}")
     check(any(name == k2 and len(shape) == 2 and shape[1] < shape[0]
               for name, shape, _ in spy.kept), "K2 never ran on an active set")
+
+    phase("29 D-sharded contspec at D=M=2^20: S=4 ranks (gloo), S=1 "
+          "(nccl), the replica at S=8")
+    from fnft_tpu_torch.parallel import spawn
+
+    spy.install()
+    t0 = time.perf_counter()
+    world = spawn(dshard_rank, DSHARD_RANKS, threads=None)
+    print(f"  the world of {DSHARD_RANKS} ranks ({GLOO}): "
+          f"{time.perf_counter() - t0:.1f} s, spawn and every sharded path")
+    merge_kept(spy, torch, dev, world)
+    dshard_contspec_phase(ft, spy, torch, dev, world)
+    dshard_world_phases(ft, spy, torch, dev, world)
+    spy.remove()
+
+    phase("35 kernels at the sharded paths' shapes")
+    records += records_of_kept(spy, torch, done, tags={"dshard"})
+    for name, shape in ((k1, (1 << 18, 2, 2, 3)), (k1, (1 << 20, 2, 2, 3)),
+                        (k1, (8, 1 << 17, 2, 2, 3)),
+                        (k1, (32, 2048, 2, 2, 3)),
+                        (k1t, (32, 2048, 2, 2, 3)),
+                        (k2, (8192, 8192)), (k2, (3, 8192, 8192))):
+        check((name, shape, "dshard") in spy.kept,
+              f"{name} never ran at {shape} on the sharded paths")
 
     print(smi)
     print(json.dumps({"kernels": records}))

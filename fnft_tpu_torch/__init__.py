@@ -17,7 +17,10 @@ two hot kernels run as hand-written sm_90a CUDA (``csrc/``, built with nvcc
 at first use); on a CPU tensor their plain PyTorch versions run.
 :mod:`fnft_tpu_torch.parallel` holds the batched transforms (a batch of
 signals as the leading tensor axis): the continuous spectrum, the full
-spectrum, the inverse and nsep. The fast continuous spectrum is
+spectrum, the inverse and nsep, and the D-axis (time) sharded transforms
+over a ``torch.distributed`` world (a ``DeviceMesh`` and explicit
+collectives; :func:`fnft_tpu_torch.entry.dryrun_multichip` is the sharded
+training step). The fast continuous spectrum is
 differentiable on the card too (K1's backward is a third kernel; the
 inverse-design pipeline is :func:`fnft_tpu_torch.entry.rho_pipeline`).
 :mod:`fnft_tpu_torch.capi` is the C API of ``fnft_tpu.h`` over the port,

@@ -25,10 +25,12 @@ once per shape and replayed for every block of that shape
 (:func:`_leaf_graph`); a failed capture raises. On the CPU the same
 recursion runs eagerly.
 
-The full-matrix recursion of the JAX package (``_recurse``, ``_peel_scan``,
-``_recurse_staged``) serves only its D-sharded inverse and is not ported
-here; :func:`_polymatmul` and :func:`_fft_jsym` are, as the independent
-version of the column products.
+The full-matrix recursion of the JAX package (``_base_case``,
+``_peel_scan``, ``_recurse``, ``_t1_stage``, ``_merge_stage``,
+``_recurse_staged``) carries whole 2x2 matrices with the same arithmetic;
+only the D-sharded inverse (``parallel/dshard_inverse.py``) calls it, and
+on the CUDA device its sub-blocks of degree <= ``_GRAPH_LEAF_DEG`` replay
+CUDA graphs too.
 """
 
 from __future__ import annotations
@@ -259,15 +261,23 @@ def _recurse_col(t_col, deg: int, eps_t, kappa: int,
 
 class _LeafGraph:
     """The recursion of one sub-block shape captured in a CUDA graph:
-    static input columns and time step, one replay a block, outputs copied
-    out. The time step is an input, so one capture serves every grid."""
+    static inputs and time step, one replay a block, outputs copied out.
+    The time step is an input, so one capture serves every grid. The
+    column-carry recursion takes the two first-column arrays, the
+    full-matrix one (``full``) the ``[..., 2, 2, deg+1]`` block."""
 
-    def __init__(self, lead, deg, kappa, disc, need_inverse, dtype, device):
-        self.inputs = tuple(torch.zeros(lead + (deg + 1,), dtype=dtype,
-                                        device=device) for _ in range(2))
+    def __init__(self, lead, deg, kappa, disc, need_inverse, dtype, device,
+                 full=False):
+        shapes = ([lead + (2, 2, deg + 1)] if full
+                  else [lead + (deg + 1,)] * 2)
+        self.inputs = tuple(torch.zeros(shape, dtype=dtype, device=device)
+                            for shape in shapes)
         self.eps_t = torch.ones((), dtype=real_dtype_of(dtype), device=device)
 
         def body():
+            if full:
+                return _recurse(self.inputs[0], deg, self.eps_t, kappa, disc,
+                                need_inverse)
             return _recurse_col(self.inputs, deg, self.eps_t, kappa, disc,
                                 need_inverse)
 
@@ -282,20 +292,141 @@ class _LeafGraph:
             with torch.cuda.graph(self.graph):
                 self.q, self.ti = body()
 
-    def __call__(self, t_col, eps_t: float):
-        for dst, src in zip(self.inputs, t_col):
+    def __call__(self, t_in, eps_t: float):
+        for dst, src in zip(self.inputs, t_in):
             dst.copy_(src)
         self.eps_t.fill_(eps_t)
         self.graph.replay()
-        ti = None if self.ti is None else tuple(x.clone() for x in self.ti)
+        if self.ti is None:
+            ti = None
+        elif isinstance(self.ti, torch.Tensor):
+            ti = self.ti.clone()
+        else:
+            ti = tuple(x.clone() for x in self.ti)
         return self.q.clone(), ti
 
 
 # one finvscatter call replays at most two leaf shapes (with and without
 # the block inverse); each graph held keeps its own memory pool
 @functools.lru_cache(maxsize=8)
-def _leaf_graph(lead, deg, kappa, disc, need_inverse, dtype, device):
-    return _LeafGraph(lead, deg, kappa, disc, need_inverse, dtype, device)
+def _leaf_graph(lead, deg, kappa, disc, need_inverse, dtype, device,
+                full=False):
+    return _LeafGraph(lead, deg, kappa, disc, need_inverse, dtype, device,
+                      full)
+
+
+# ---------------------------------------------------------------------------
+# full-matrix recursion (the JAX package's _recurse / _recurse_staged)
+# ---------------------------------------------------------------------------
+
+def _base_case(t, eps_t, kappa: int, disc: Discretization):
+    """One-sample inversion (reference :167-227): (q_sample, Ti
+    ``[..., 2, 2, 2]``), Ti the inverse one-step matrix up to a factor z."""
+    q_s, scl, qq = _base_case_col(t[..., 0, 0, 0], t[..., 1, 0, 0], eps_t,
+                                  kappa, disc)
+    z = torch.zeros_like(scl)
+    ti = torch.stack([
+        torch.stack([torch.stack([z, scl], dim=-1),
+                     torch.stack([z, -scl * qq], dim=-1)], dim=-2),
+        torch.stack([torch.stack([scl * kappa * torch.conj(qq), z], dim=-1),
+                     torch.stack([scl, z], dim=-1)], dim=-2),
+    ], dim=-3)
+    return q_s, ti
+
+
+def _peel_scan(t, deg: int, eps_t, kappa: int, disc: Discretization):
+    """Sequential one-sample peel of a whole block, carrying both rows of
+    T and the first column of the accumulated inverse (the JAX package's
+    ``lax.scan``). Returns (q [..., deg] natural order, Ti
+    ``[..., 2, 2, deg+1]``)."""
+    u = torch.zeros_like(t[..., 0, 0, :])
+    u[..., 0].fill_(1.0)    # a fill, not a copy from the host: capturable
+    v = torch.zeros_like(u)
+    q_rev = []
+    for _ in range(deg):
+        q_s, scl, qq = _base_case_col(t[..., 0, 0, 0], t[..., 1, 0, 0],
+                                      eps_t, kappa, disc)
+        mq = -scl * qq
+        kq = scl * kappa * torch.conj(qq)
+        s_, m_ = scl[..., None, None], mq[..., None, None]
+        k_ = kq[..., None, None]
+        row0, row1 = t[..., 0, :, :], t[..., 1, :, :]
+        t = torch.stack([s_ * row0 + m_ * row1,
+                         _shift_down(k_ * row0 + s_ * row1)], dim=-3)
+        sa, ma, ka = scl[..., None], mq[..., None], kq[..., None]
+        u, v = _shift_up(sa * u + ma * v), ka * u + sa * v
+        q_rev.append(q_s)
+    return torch.stack(q_rev, dim=-1).flip(-1), _jsym_complete(u, v, kappa)
+
+
+def _t1_stage(t2i, t, d2: int, deg: int, kappa: int):
+    """T1 window: (T2i @ T)[d2 : deg+1], T2i J-symmetric."""
+    prod = _polymatmul(t2i, t, out_len=deg + 1, a_jsym=kappa, safe_from=d2)
+    return prod[..., d2: deg + 1]
+
+
+def _merge_stage(t1i, t2i, kappa: int):
+    """Block-inverse merge Ti = T1i @ T2i of two J-symmetric factors."""
+    return _polymatmul(t1i, t2i, jsym=kappa)
+
+
+def _recurse(t, deg: int, eps_t, kappa: int, disc: Discretization,
+             need_inverse: bool):
+    """Full-matrix recursion: (q [..., deg] natural order, Ti or None)."""
+    if 1 < deg <= _SCAN_CUTOFF:
+        q, ti = _peel_scan(t, deg, eps_t, kappa, disc)
+        return q, (ti if need_inverse else None)
+    if deg == 1:
+        q_s, ti = _base_case(t, eps_t, kappa, disc)
+        return q_s[..., None], (ti if need_inverse else None)
+    d2 = deg // 2
+    # later samples: the low-order coefficient half approximates T2
+    q_hi, t2i = _recurse(t[..., :d2 + 1], d2, eps_t, kappa, disc, True)
+    q_lo, t1i = _recurse(_t1_stage(t2i, t, d2, deg, kappa), d2, eps_t,
+                         kappa, disc, need_inverse)
+    ti = _merge_stage(t1i, t2i, kappa) if need_inverse else None
+    return torch.cat([q_lo, q_hi], dim=-1), ti
+
+
+def _full_leaf(t: torch.Tensor, eps_t: float, kappa: int,
+               disc: Discretization):
+    """The leaf of :func:`_recurse_staged` for ``t``'s device: CUDA graphs
+    of :func:`_recurse` on the card, None (the eager recursion) on the
+    CPU."""
+    if t.device.type == "cpu":
+        return None
+    if t.device.type != "cuda":
+        raise ValueError(f"finvscatter: no route for device {t.device}")
+
+    def leaf(tt, deg, need_inverse):
+        return _leaf_graph(tuple(tt.shape[:-3]), deg, kappa, disc,
+                           need_inverse, tt.dtype, tt.device, True)(
+                               (tt,), eps_t)
+    return leaf
+
+
+def _recurse_staged(t, deg: int, eps_t: float, kappa: int,
+                    disc: Discretization, need_inverse: bool, out: list,
+                    offset: int, leaf=None):
+    """Host-level recursion above ``_GRAPH_LEAF_DEG`` (the JAX package's
+    staged driver, its leaf degree): leaf q blocks land in ``out`` as
+    (sample offset, block), the caller concatenates them in time order.
+    ``leaf(t, deg, need_inverse)`` takes the blocks of degree <=
+    ``_GRAPH_LEAF_DEG`` (default: :func:`_recurse`). Returns the block
+    inverse or None."""
+    if deg <= _GRAPH_LEAF_DEG:
+        if leaf is None:
+            q, ti = _recurse(t, deg, eps_t, kappa, disc, need_inverse)
+        else:
+            q, ti = leaf(t, deg, need_inverse)
+        out.append((offset, q))
+        return ti
+    d2 = deg // 2
+    t2i = _recurse_staged(t[..., :d2 + 1], d2, eps_t, kappa, disc, True,
+                          out, offset + d2, leaf)
+    t1i = _recurse_staged(_t1_stage(t2i, t, d2, deg, kappa), d2, eps_t,
+                          kappa, disc, need_inverse, out, offset, leaf)
+    return _merge_stage(t1i, t2i, kappa) if need_inverse else None
 
 
 def finvscatter(transfer_matrix: torch.Tensor, eps_t: float, kappa: int,

@@ -259,6 +259,19 @@ def _prefix_product(u: torch.Tensor, du: torch.Tensor | None = None):
     return u, du
 
 
+def _all_step_matrices(xs, step_fn, lam, derivative: bool):
+    """All step matrices at once, ``U [S, ..., K, 2, 2]`` and dU/dlam (or
+    None): the JAX package's vmap of ``step_fn`` over the steps, which the
+    port's step functions do in one call."""
+    return step_fn(lam, *xs, derivative=derivative)
+
+
+def _mat_scan(u: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix products (later factors left) without
+    derivatives."""
+    return _prefix_product(u)[0]
+
+
 def scatter_matrix(q, r, lam, eps_t: float, disc: Discretization, *,
                    derivative: bool = False):
     """Full-interval scattering matrix at each lambda.

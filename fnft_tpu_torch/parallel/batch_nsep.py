@@ -46,7 +46,7 @@ from fnft_tpu_torch.models.nsev import _array_device
 from fnft_tpu_torch.ops.fscatter import fscatter
 from fnft_tpu_torch.ops.poly import _pow2
 from fnft_tpu_torch.ops.roots import aberth_roots, newton_polygon_init
-from fnft_tpu_torch.parallel.sharding import _as_batch
+from fnft_tpu_torch.parallel.sharding import _as_batch, _batch_sharded
 from fnft_tpu_torch.utils import misc
 
 
@@ -62,11 +62,14 @@ def make_batched_nsep_fn(d: int, t_span, *, kappa: int = +1,
                          disc: Discretization = Discretization.SPLIT2A,
                          dsub: int = 0, floquet_range=(-1.0, 1.0),
                          points_per_spine: int = 2, max_evals: int = 20,
-                         num_aberth_iters: int = 80, device=None):
+                         num_aberth_iters: int = 80, mesh=None,
+                         device=None):
     """A batched nsep ``(q[B, D], lam_shift[B]) -> (main, main mask, aux,
     aux mask)``, ``lam_shift`` the spectral shift of each quasi-periodic
     signal (:func:`batched_nsep` takes phase shifts). ``device`` is where
-    array inputs go (default: the CUDA device; raises without one)."""
+    array inputs go (default: the CUDA device; raises without one). With
+    ``mesh`` each rank refines its rows of the ``"batch"`` axis and
+    returns the full batch."""
     dev = _array_device(device)
     t0, t1 = float(t_span[0]), float(t_span[1])
     check_arg(d >= 2 and (d & (d - 1)) == 0, "D must be a power of two")
@@ -88,10 +91,14 @@ def make_batched_nsep_fn(d: int, t_span, *, kappa: int = +1,
         q = _as_batch(q_batch, dev)
         check_arg(q.shape[-1] == d, f"the geometry has D={d}, got "
                   f"{q.shape[-1]} samples")
+        lam_shift = torch.as_tensor(lam_shift, device=q.device).to(
+            real_dtype_of(complex_dtype_of(q)))
+        return sharded(q, lam_shift)
+
+    def rows(q, lam_shift):
         cdt = complex_dtype_of(q)
         rdt = real_dtype_of(cdt)
         b = q.shape[0]
-        lam_shift = torch.as_tensor(lam_shift, device=q.device).to(rdt)
         tgrid = t0 + eps_t * torch.arange(d, dtype=rdt, device=q.device)
         q_pre = q.to(cdt) * torch.exp(2j * lam_shift[:, None] * tgrid)
 
@@ -144,25 +151,27 @@ def make_batched_nsep_fn(d: int, t_span, *, kappa: int = +1,
         return (lam_main + lam_shift[:, None], mask_main,
                 lam_aux + lam_shift[:, None], mask_aux)
 
+    sharded = _batch_sharded(rows, mesh)
     return fn
 
 
 @functools.lru_cache(maxsize=32)
-def _cached_nsep_fn(d, t_span, kappa, disc, device, kw_items):
+def _cached_nsep_fn(d, t_span, kappa, disc, device, mesh, kw_items):
     return make_batched_nsep_fn(d, t_span, kappa=kappa, disc=disc,
-                                device=device, **dict(kw_items))
+                                mesh=mesh, device=device, **dict(kw_items))
 
 
 def batched_nsep(q_batch, t_span, *, phase_shifts=None, kappa: int = +1,
                  disc: Discretization = Discretization.SPLIT2A,
-                 device=None, **kw) -> BatchedNsepResult:
+                 mesh=None, device=None, **kw) -> BatchedNsepResult:
     """Main/aux spectra of a batch of periodic signals ``q_batch [B, D]``
     (masked results), ``phase_shifts [B]`` for quasi-periodic ones.
 
-    The function is cached per (D, t_span, config, device), so repeated
-    serving calls reuse one. ``device`` is where an array input goes
-    (default: the CUDA device; raises without one); keyword arguments go
-    to :func:`make_batched_nsep_fn`.
+    The function is cached per (D, t_span, config, device, mesh), so
+    repeated serving calls reuse one. ``device`` is where an array input
+    goes (default: the CUDA device; raises without one); ``mesh`` shards
+    the batch over its ``"batch"`` axis; keyword arguments go to
+    :func:`make_batched_nsep_fn`.
     """
     q = _as_batch(q_batch, device)
     b, d = q.shape
@@ -176,7 +185,7 @@ def batched_nsep(q_batch, t_span, *, phase_shifts=None, kappa: int = +1,
     kw_items = tuple(sorted(
         (k, tuple(v) if isinstance(v, (list, tuple)) else v)
         for k, v in kw.items()))
-    fn = _cached_nsep_fn(d, (t0, t1), kappa, disc, q.device, kw_items)
+    fn = _cached_nsep_fn(d, (t0, t1), kappa, disc, q.device, mesh, kw_items)
     main, mmask, aux, amask = fn(q, shifts)
     return BatchedNsepResult(main_spectrum=main, main_mask=mmask,
                              aux_spectrum=aux, aux_mask=amask)

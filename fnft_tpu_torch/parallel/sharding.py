@@ -11,9 +11,11 @@ tensors, which holds the geometry's chirp-Z tables on the device.
 
 Inputs follow the other entry points: a tensor stays on its device (and
 in its precision), an array goes to ``device`` (default: the CUDA device;
-without one the call raises). The JAX package's ``mesh=`` route, which
-shards the batch over devices, waits for the port's ``torch.distributed``
-slice (``ROADMAP.md`` Queue 1 item 15): these functions take no ``mesh``.
+without one the call raises). With ``mesh`` (a ``DeviceMesh`` over an
+initialized world, see ``parallel/mesh.py``) every rank passes the full
+batch, takes its B/size rows of the mesh's ``"batch"`` axis, and gets the
+full batch of spectra back (an ``all_gather`` over that axis), as the JAX
+package's ``mesh=`` route returns the global array.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from fnft_tpu_torch.models.nsev import (
 )
 from fnft_tpu_torch.ops.fscatter import fscatter
 from fnft_tpu_torch.ops.poly import _chirpz_tables
+from fnft_tpu_torch.parallel.mesh import MeshAxis, as_auto_mesh
 
 
 def _as_batch(q_batch, device) -> torch.Tensor:
@@ -47,6 +50,27 @@ def _as_batch(q_batch, device) -> torch.Tensor:
     check_arg(q.dim() == 2, f"a batch [B, D] is required, got "
               f"{tuple(q.shape)}")
     return q
+
+
+def _batch_sharded(fn, mesh):
+    """``fn`` on this rank's rows of the mesh's ``"batch"`` axis, the
+    results (a tensor, or a tuple or dict of them, batch first) gathered
+    back over that axis; ``fn`` itself without a mesh."""
+    if as_auto_mesh(mesh) is None:
+        return fn
+    axis = MeshAxis(mesh, "batch")
+
+    def gather(x):
+        if isinstance(x, dict):
+            return {k: gather(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            return tuple(gather(v) for v in x)
+        return axis.all_gather(x, dim=0, tiled=True)
+
+    def run(*batches):
+        return gather(fn(*(axis.block(b, 0) for b in batches)))
+
+    return run
 
 
 class _ContspecPass:
@@ -102,7 +126,7 @@ class _ContspecPass:
 
 def make_nsev_batch_fn(d: int, t_span, m: int, xi_span, *, kappa: int = +1,
                        disc: Discretization = Discretization.SPLIT4B,
-                       contspec_type=None, device=None):
+                       contspec_type=None, mesh=None, device=None):
     """A reusable batched forward NFT ``q[B, D] -> spectra``.
 
     The returned callable keeps the (D, M, grid) geometry and returns a
@@ -110,15 +134,17 @@ def make_nsev_batch_fn(d: int, t_span, m: int, xi_span, *, kappa: int = +1,
     ``[B, M]`` on the input's device. This is the serving entry point:
     feed it batches and keep the device busy. ``device`` is where array
     inputs go and where the tables are built (default: the CUDA device;
-    raises without one).
+    raises without one). With ``mesh`` each rank computes its rows of the
+    ``"batch"`` axis and returns the full batch.
     """
     dev = _array_device(device)
     run = _ContspecPass(d, t_span, m, xi_span, kappa, disc,
                         contspec_type or ContspecType.REFLECTION_COEFFICIENT,
                         dev)
+    sharded = _batch_sharded(lambda q: run(q)[0], mesh)
 
     def fn(q_batch):
-        return run(_as_batch(q_batch, dev))[0]
+        return sharded(_as_batch(q_batch, dev))
 
     return fn
 
@@ -126,11 +152,11 @@ def make_nsev_batch_fn(d: int, t_span, m: int, xi_span, *, kappa: int = +1,
 def batched_nsev_contspec(q_batch, t_span, m: int, xi_span, *,
                           kappa: int = +1,
                           disc: Discretization = Discretization.SPLIT4B,
-                          device=None):
+                          mesh=None, device=None):
     """Reflection coefficients ``rho [B, M]`` of a batch of signals
     ``q_batch [B, D]`` (``device`` as in :func:`make_nsev_batch_fn`, for an
-    array input)."""
+    array input; ``mesh`` shards the batch over its ``"batch"`` axis)."""
     q = _as_batch(q_batch, device)
-    return _ContspecPass(q.shape[-1], t_span, m, xi_span, kappa, disc,
-                         ContspecType.REFLECTION_COEFFICIENT,
-                         q.device)(q)[0]["rho"]
+    run = _ContspecPass(q.shape[-1], t_span, m, xi_span, kappa, disc,
+                        ContspecType.REFLECTION_COEFFICIENT, q.device)
+    return _batch_sharded(lambda qb: run(qb)[0]["rho"], mesh)(q)

@@ -395,3 +395,36 @@ def test_tree_backward_equal_on_card_and_cpu(cuda_device):
     assert launches["cuda"]["fused_tree_levels"] == 1
     assert launches["cuda"]["fused_tree_levels_bwd"] == 1
     assert _rel(grads["cuda"], grads["cpu"]) < 1e-10
+
+
+@pytest.mark.cuda
+def test_dshard_replica_equal_on_card_and_cpu(cuda_device):
+    """The single-process replica of the sharded contspec (S = 4, K1 in
+    each chunk tree on the card) against CPU tensors at D = M = 4096."""
+    from fnft_tpu_torch.parallel.dshard import dshard_contspec_reference
+    from fnft_tpu_torch.models.nsev import ContspecType
+
+    t = np.linspace(-16.0, 16.0, 4096)
+    q = 3.2j / np.cosh(t)
+    out = {dev: dshard_contspec_reference(
+        torch.as_tensor(q, device=dev), 4096, (-16.0, 16.0), 4096,
+        (-1.5, 1.5), s=4, contspec_type=ContspecType.BOTH)
+        for dev in ("cuda", "cpu")}
+    for key in ("rho", "a", "b"):
+        assert out["cuda"][key].device.type == "cuda"
+        assert float((out["cuda"][key].cpu() - out["cpu"][key]).abs().max()
+                     ) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_dshard_gloo_world_equal_on_card_and_cpu(cuda_device):
+    """A gloo world of 2 ranks sharing the card: the sharded contspec on
+    CUDA tensors (exchanged through the host) against the same on CPU
+    tensors, rank by rank."""
+    from fnft_tpu_torch.parallel.mesh import spawn
+    import torch_dshard_worlds as w
+
+    for r in spawn(w.cuda_world, 2, threads=None):
+        for key in ("rho", "a", "b"):
+            assert r["cuda"][key].shape == (4096 // 2,)
+            assert np.max(np.abs(r["cuda"][key] - r["cpu"][key])) <= 1e-12
