@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from fnft_tpu_torch/csrc with nvcc (no instance
-of K1T may spill, by ptxas's report), holds each
+of K1T or of K1 at three levels may spill, by ptxas's report), holds each
 against its plain PyTorch version at the shapes of the nsev main path
 and at ragged, batched and clustered ones, then drives
 ``fnft_tpu_torch.nsev`` (default options, 2SPLIT4B) on the Satsuma-Yajima
@@ -137,15 +137,21 @@ def bound(nbytes: float, flops: dict) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), by
 
 
-def k1_work(n_sub: int, c: int, itemsize: int) -> tuple[float, dict]:
-    """Bytes and flops of K1 at L = 2 on n_sub subtrees of c coefficients:
-    each input read once, each output and exponent written once; 16 flops
-    a coefficient pair of a 2x2 polynomial product (two complex products
-    and two complex sums), 4 c^2 pairs in each of the two level-1 products
-    and 4 (2c - 1)^2 in the level-2 one, one multiply a real output."""
-    c_out = 4 * c - 3
-    nbytes = n_sub * ((16 * c + 4 * c_out) * 2 * itemsize + 4)
-    flops = n_sub * (16 * (2 * 4 * c * c + 4 * (2 * c - 1) ** 2) + 8 * c_out)
+def k1_work(n_sub: int, c: int, itemsize: int,
+            levels: int = 2) -> tuple[float, dict]:
+    """Bytes and flops of K1 at L = ``levels`` on n_sub subtrees of c
+    coefficients: each input read once, each output and exponent written
+    once; 16 flops a coefficient pair of a 2x2 polynomial product (two
+    complex products and two complex sums), 4 k^2 pairs in each of the
+    2^(L - l) products of level l, whose factors have k coefficients (c at
+    level 1, 2k - 1 at the next), one multiply a real output."""
+    c_out = (c - 1) * (1 << levels) + 1
+    nbytes = n_sub * (((4 << levels) * c + 4 * c_out) * 2 * itemsize + 4)
+    pairs, k = 0, c
+    for lv in range(1, levels + 1):
+        pairs += (1 << (levels - lv)) * 4 * k * k
+        k = 2 * k - 1
+    flops = n_sub * (16 * pairs + 8 * c_out)
     return nbytes, {"fp64" if itemsize == 8 else "fp32": flops}
 
 
@@ -193,19 +199,27 @@ def phase(name: str) -> None:
 
 
 def check_k1(kernels, torch, dev) -> None:
-    """(788, ...) gives 197 subtrees, not a multiple of a block's 64;
-    n = 1024, 4096, 2^20 (c = 3) are the main path's shapes."""
+    """At two levels (788, ...) gives 197 subtrees, not a multiple of a
+    block's 64; at three (1576, ...) and (424, ...) give 197 and 53, not
+    multiples of a span (16, or 12 at c = 4 in fp64). n = 1024, 4096, 2^20
+    (c = 3) are the main path's shapes, at two levels as the gradients
+    take them and at three as the rest of the tree does."""
     rng = np.random.default_rng(1)
-    for shape in ((1024, 2, 2, 3), (4096, 2, 2, 3), (1024, 2, 2, 2),
-                  (3, 512, 2, 2, 2), (1024, 2, 2, 4), (788, 2, 2, 3),
-                  (2, 3, 196, 2, 2, 4), (1 << 20, 2, 2, 3)):
+    for shape, levels in (((1024, 2, 2, 3), 2), ((4096, 2, 2, 3), 2),
+                          ((1024, 2, 2, 2), 2), ((3, 512, 2, 2, 2), 2),
+                          ((1024, 2, 2, 4), 2), ((788, 2, 2, 3), 2),
+                          ((2, 3, 196, 2, 2, 4), 2), ((1 << 20, 2, 2, 3), 2),
+                          ((4096, 2, 2, 3), 3), ((1 << 20, 2, 2, 3), 3),
+                          ((2, 3, 1024, 2, 2, 4), 3), ((1576, 2, 2, 3), 3),
+                          ((424, 2, 2, 4), 3)):
         base = rng.normal(size=shape) + 1j * rng.normal(size=shape)
         for dtype, tol in ((torch.complex128, 1e-12), (torch.complex64, 5e-6)):
             p = torch.as_tensor(base).to(dtype).to(dev)
             for normalize in (False, True):
-                got, w = kernels.fused_tree_levels(p, 2, normalize=normalize)
+                got, w = kernels.fused_tree_levels(p, levels,
+                                                   normalize=normalize)
                 ref, w_ref = kernels.fused_tree_levels_plain(
-                    p, 2, normalize=normalize)
+                    p, levels, normalize=normalize)
                 torch.cuda.synchronize()
                 dev_rel = rel_dev(got, ref)
                 check(torch.equal(w, w_ref), f"K1 w differs {shape} {dtype}")
@@ -215,8 +229,9 @@ def check_k1(kernels, torch, dev) -> None:
                     mx = torch.view_as_real(got).abs().amax(dim=(-4, -3, -2, -1))
                     check(bool(torch.all((mx >= 1) & (mx < 2))),
                           f"K1 {shape} {dtype}: max not in [1, 2)")
-                print(f"K1 {tuple(shape)} {str(dtype)[6:]} normalize="
-                      f"{normalize}: max rel dev {dev_rel:.3e}, w equal")
+                print(f"K1 L={levels} {tuple(shape)} {str(dtype)[6:]} "
+                      f"normalize={normalize}: max rel dev {dev_rel:.3e}, "
+                      f"w equal")
 
 
 def oracle_k2(torch, z_all, z_t, idx):
@@ -339,6 +354,10 @@ class KernelSpy:
                 shape = tuple(args[0].shape) + (args[1].shape[-1],)
             key = (name, shape, self.tag)
             self.counts[key] = self.counts.get(key, 0) + 1
+            if name == "fused_tree_levels" and args[1] == 3:
+                # the wrapper counts these under fused_tree_levels_l3 too
+                l3 = ("fused_tree_levels_l3",) + key[1:]
+                self.counts[l3] = self.counts.get(l3, 0) + 1
             if key not in self.kept:
                 self.kept[key] = {
                     "args": tuple(a.detach().clone() if hasattr(a, "clone")
@@ -364,7 +383,7 @@ class KernelSpy:
             check(seen == n, f"{self.path}: {name} counted {n} launches, "
                   f"{seen} went through the modules")
         for key, n in self.counts.items():
-            if self.kept[key]["path"] == self.path:
+            if key in self.kept and self.kept[key]["path"] == self.path:
                 self.kept[key]["launches"] = n
         return dict(self.kernels.LAUNCHES)
 
@@ -376,34 +395,36 @@ class KernelSpy:
         return self.kept[(name, tuple(shape), tag)]["launches"]
 
 
-def k1_record(kernels, torch, p, normalize, launches, path,
+def k1_record(kernels, torch, p, levels, normalize, launches, path,
               timed=True) -> dict | None:
-    """K1 (two levels) on the stack ``p`` against its plain version: equal
-    exponents, coefficients to 1e-12 in complex128 (5e-6 in complex64);
-    with ``timed`` its record."""
+    """K1 (``levels`` levels) on the stack ``p`` against its plain version:
+    equal exponents, coefficients to 1e-12 in complex128 (5e-6 in
+    complex64); with ``timed`` its record."""
     tol = {torch.complex128: 1e-12, torch.complex64: 5e-6}[p.dtype]
-    got, w = kernels.fused_tree_levels(p, 2, normalize=normalize)
-    ref, w_ref = kernels.fused_tree_levels_plain(p, 2, normalize=normalize)
+    got, w = kernels.fused_tree_levels(p, levels, normalize=normalize)
+    ref, w_ref = kernels.fused_tree_levels_plain(p, levels,
+                                                 normalize=normalize)
     torch.cuda.synchronize()
     check(torch.equal(w, w_ref), f"K1 {path} {list(p.shape)}: w differs")
     check(rel_dev(got, ref) <= tol, f"K1 {path} {list(p.shape)}: "
           f"{rel_dev(got, ref):.3e} > {tol}")
     if not timed:
-        print(f"K1 {list(p.shape)} ({path}): max rel dev "
+        print(f"K1 L={levels} {list(p.shape)} ({path}): max rel dev "
               f"{rel_dev(got, ref):.3e}, w equal")
         return None
-    ms = graph_ms(lambda: kernels.fused_tree_levels(p, 2,
+    ms = graph_ms(lambda: kernels.fused_tree_levels(p, levels,
                                                     normalize=normalize),
                   reps=50)
     plain_ms = graph_ms(lambda: kernels.fused_tree_levels_plain(
-        p, 2, normalize=normalize), reps=5, replays=2)
-    n_sub = p[..., 0, 0, 0].numel() // 4
+        p, levels, normalize=normalize), reps=5, replays=2)
+    n_sub = p[..., 0, 0, 0].numel() >> levels
     rec = record("fused_tree_levels", "fnft_tpu_torch/csrc/tree_levels.cu",
                  "fnft_tpu/ops/pallas_kernels.py:113", list(p.shape), path,
                  launches, float((got - ref).abs().max()), ms, plain_ms,
-                 k1_work(n_sub, p.shape[-1], p.element_size() // 2))
-    print(f"K1 {list(p.shape)} {str(p.dtype)[6:]} ({path}, {launches} "
-          f"launches): kernel "
+                 k1_work(n_sub, p.shape[-1], p.element_size() // 2, levels),
+                 levels=levels)
+    print(f"K1 L={levels} {list(p.shape)} {str(p.dtype)[6:]} ({path}, "
+          f"{launches} launches): kernel "
           f"{ms:.4f} ms ({rec['pct_of_bound']:.1f}% of its "
           f"{rec['bound_by']} bound {rec['bound_ms']:.4f} ms), plain "
           f"{plain_ms:.4f} ms")
@@ -439,6 +460,25 @@ def k1t_record(kernels, torch, p, w, g_out, launches, path) -> dict:
           f"its {rec['bound_by']} bound {rec['bound_ms']:.4f} ms), plain "
           f"{plain_ms:.4f} ms, max rel dev {dev_rel:.3e}")
     return rec
+
+
+def check_k1_instances(kernels) -> None:
+    """K1's ten instances as ptxas built them (from the build log): no
+    three-level instance may spill, and two of its blocks fit on an SM
+    (the two-level design spills in fp64 at c = 3 and 4); with each its
+    launch configuration."""
+    for inst in kernels.fused_tree_levels_instances():
+        what = f"K1 L={inst['levels']} {inst['dtype']} c={inst['c']}"
+        print(f"{what}: {inst['registers']} registers, "
+              f"{inst['spill_stores']} B spill stores, {inst['spill_loads']} "
+              f"B spill loads, {inst['stack']} B stack; {inst['span']} "
+              f"subtrees a span, {inst['threads']} threads and "
+              f"{inst['smem']} B of shared memory a block, "
+              f"{inst['blocks_per_sm']} blocks an SM")
+        check(inst["levels"] == 2 or (inst["spill_stores"] == 0
+                                      and inst["spill_loads"] == 0
+                                      and inst["blocks_per_sm"] >= 2),
+              f"{what}: spills or {inst['blocks_per_sm']} blocks an SM")
 
 
 def check_k1t_instances(kernels) -> None:
@@ -509,9 +549,10 @@ def check_k1t(kernels, torch, dev) -> None:
                      f"{shape} complex128, inputs x 2^{round(np.log2(scale))}")
 
 
-def k1_main_path_record(kernels, torch, dev, d, launches) -> dict:
-    """K1 at the full pass of D: the D transfer matrices of 2SPLIT4B on the
-    sech (3 coefficients), complex128."""
+def k1_main_path_record(kernels, torch, dev, d, levels, launches) -> dict:
+    """K1 at the full pass of D (``levels`` levels, as the tree took it):
+    the D transfer matrices of 2SPLIT4B on the sech (3 coefficients),
+    complex128."""
     from fnft_tpu_torch.ops import fscatter as fs
     from fnft_tpu_torch.testcases import NsevTestcase, nsev_testcase
 
@@ -520,7 +561,8 @@ def k1_main_path_record(kernels, torch, dev, d, launches) -> dict:
     eps_t = (data.t_span[1] - data.t_span[0]) / (q.shape[0] - 1)
     p = fs.transfer_matrix_coeffs(q, -torch.conj(q), eps_t,
                                   fs.Discretization.SPLIT4B).contiguous()
-    return k1_record(kernels, torch, p, True, launches, f"SPLIT4B D={d}")
+    return k1_record(kernels, torch, p, levels, True, launches,
+                     f"SPLIT4B D={d}")
 
 
 def k2_rows_bitwise(kernels, torch, z_all, z_t, idx, got, what) -> None:
@@ -594,9 +636,10 @@ def records_of_kept(spy, torch, done, tags=None) -> list:
         timed = key not in done
         if name == "fused_tree_levels":
             p, levels = kept["args"]
-            check(levels == 2, f"K1 {kept['path']}: {levels} levels")
-            rec = k1_record(spy.kernels, torch, p, kept["kwargs"]["normalize"],
-                            kept["launches"], kept["path"], timed)
+            check(levels in (2, 3), f"K1 {kept['path']}: {levels} levels")
+            rec = k1_record(spy.kernels, torch, p, levels,
+                            kept["kwargs"]["normalize"], kept["launches"],
+                            kept["path"], timed)
         elif name == "fused_tree_levels_bwd":
             p, w, g_out, levels = kept["args"]
             check(levels == 2, f"K1T {kept['path']}: {levels} levels")
@@ -2484,6 +2527,7 @@ def main() -> int:
     for line in log.read_text().splitlines() if log.exists() else []:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip())
+    check_k1_instances(kernels)
     check_k1t_instances(kernels)
 
     spy = KernelSpy(kernels, poly, roots)
@@ -2533,6 +2577,7 @@ def main() -> int:
                    "fused_tree_levels_bwd")
     records = [
         k1_main_path_record(kernels, torch, dev, d,
+                            spy.kept[(k1, (d, 2, 2, 3), "")]["args"][1],
                             spy.launches(k1, (d, 2, 2, 3)))
         for d in (4096, 1 << 16, 1 << 20)]
     records.append(k2_main_path_record(kernels, torch, dev,

@@ -126,6 +126,9 @@ def library() -> ctypes.CDLL:
             lib.fnft_fused_tree_levels.argtypes = [
                 vp, vp, vp, i64, i32, i32, i32, i32, vp]
             lib.fnft_fused_tree_levels.restype = i32
+            lib.fnft_fused_tree_levels_config.argtypes = [
+                i32, i32, i32, ctypes.POINTER(i32)]
+            lib.fnft_fused_tree_levels_config.restype = i32
             lib.fnft_fused_tree_levels_bwd.argtypes = [
                 vp, vp, vp, vp, i64, i32, i32, i32, i32, vp]
             lib.fnft_fused_tree_levels_bwd.restype = i32

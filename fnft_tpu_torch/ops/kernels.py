@@ -17,11 +17,13 @@ import ctypes
 
 import torch
 
-LAUNCHES = {"fused_tree_levels": 0, "fused_tree_levels_bwd": 0,
-            "repulsion_sum": 0}
+LAUNCHES = {"fused_tree_levels": 0, "fused_tree_levels_l3": 0,
+            "fused_tree_levels_bwd": 0, "repulsion_sum": 0}
 
-# (levels, c_in) pairs instantiated in csrc/tree_levels.cu
-K1_SHAPES = frozenset((2, c) for c in (2, 3, 4))
+# (levels, c_in) pairs instantiated in csrc/tree_levels.cu (K1) and
+# csrc/tree_levels_bwd.cu (K1T)
+K1_SHAPES = frozenset([(2, 2), (2, 3), (2, 4), (3, 3), (3, 4)])
+K1T_SHAPES = frozenset((2, c) for c in (2, 3, 4))
 
 
 def reset_launches() -> None:
@@ -76,12 +78,16 @@ def fused_tree_levels(p: torch.Tensor, levels: int, *,
     ``normalize``).
 
     Replaces the Pallas kernel ``fnft_tpu/ops/pallas_kernels.py:113``.
-    On the H100 (``csrc/tree_levels.cu``) one thread owns one subtree of
-    2^L matrices in registers, so each matrix is read from device memory
-    once and each product written once: the kernel is bound by those
-    bytes, where the plain version makes ~L x 20 passes over them. A
-    persistent block stages spans of 64 subtrees through shared memory
-    (coalesced, double-buffered copies in, coalesced stores out).
+    On the H100 (``csrc/tree_levels.cu``) each matrix is read from device
+    memory once and each product written once: the kernel is bound by
+    those bytes, where the plain version makes ~L x 20 passes over them.
+    Persistent blocks stage spans of subtrees through shared memory
+    (coalesced, double-buffered copies in, coalesced stores out). At
+    L = 2 one thread owns a subtree of 4 matrices in registers; at L = 3
+    (c = 3, 4) a team of eight threads takes a subtree of 8, exchanging
+    each level's products through shared memory. ``LAUNCHES`` counts
+    every launch under ``fused_tree_levels`` and the three-level ones
+    under ``fused_tree_levels_l3`` too.
 
     On a CUDA tensor the call is differentiable in ``p``
     (:class:`_FusedTreeLevels`: the backward is the kernel K1T); on a CPU
@@ -121,23 +127,25 @@ class _FusedTreeLevels(torch.autograd.Function):
         return g_in, None, None
 
 
-def _check_k1_input(name: str, p: torch.Tensor, levels: int) -> None:
-    """What K1 and K1T both require of ``p`` on the card."""
+def _check_k1_input(name: str, p: torch.Tensor, levels: int,
+                    shapes: frozenset) -> None:
+    """What K1 and K1T both require of ``p`` on the card; ``shapes`` are
+    the kernel's instantiated (levels, c) pairs."""
     *_, n, r, c, c_in = p.shape
     if p.dtype not in (torch.complex128, torch.complex64):
         raise TypeError(f"{name}: complex input required, got {p.dtype}")
     if (r, c) != (2, 2) or n % (1 << levels):
         raise ValueError(f"{name}: shape {tuple(p.shape)} is not "
                          f"[..., n, 2, 2, c] with n divisible by 2^{levels}")
-    if (levels, c_in) not in K1_SHAPES:
+    if (levels, c_in) not in shapes:
         raise ValueError(f"{name}: (levels, c) = {(levels, c_in)} not "
-                         f"instantiated; have {sorted(K1_SHAPES)}")
+                         f"instantiated; have {sorted(shapes)}")
     if not p.is_contiguous():
         raise ValueError(f"{name}: input must be contiguous")
 
 
 def _fused_tree_levels_kernel(p, levels, normalize):
-    _check_k1_input("fused_tree_levels", p, levels)
+    _check_k1_input("fused_tree_levels", p, levels, K1_SHAPES)
     *lead, n, _, _, c_in = p.shape
     from fnft_tpu_torch.ops import _build
 
@@ -154,6 +162,8 @@ def _fused_tree_levels_kernel(p, levels, normalize):
             torch.cuda.current_stream().cuda_stream)
     _check_launch("fused_tree_levels", err)
     LAUNCHES["fused_tree_levels"] += 1
+    if levels == 3:
+        LAUNCHES["fused_tree_levels_l3"] += 1
     return out, w
 
 
@@ -221,7 +231,7 @@ def fused_tree_levels_vjp(p: torch.Tensor, w, g_out: torch.Tensor,
     """
     if not _route(p):
         return fused_tree_levels_vjp_plain(p, w, g_out, levels)
-    _check_k1_input("fused_tree_levels_vjp", p, levels)
+    _check_k1_input("fused_tree_levels_vjp", p, levels, K1T_SHAPES)
     *lead, n, _, _, c_in = p.shape
     n_out, c_out = n >> levels, (c_in - 1) * (1 << levels) + 1
     if g_out.dtype != p.dtype or (w is not None and w.dtype != torch.int32):
@@ -250,36 +260,55 @@ def fused_tree_levels_vjp(p: torch.Tensor, w, g_out: torch.Tensor,
     return g_in
 
 
-def fused_tree_levels_vjp_instances() -> list[dict]:
-    """K1T's six instances (complex128 and complex64, c = 2, 3, 4) as built
-    for the current CUDA device: what ptxas reported (registers, bytes of
-    stack frame and spill stores and loads, from the build log) and the
-    launch configuration (subtrees a span, threads and dynamic shared
-    memory a block, blocks an SM)."""
+def _instances(kernel: str, config: str, keys: tuple, shapes) -> list[dict]:
+    """Each instance of ``kernel`` (complex128 and complex64 at each tuple
+    of ``shapes``, its template's integers, named by ``keys``) as built for
+    the current CUDA device: what ptxas reported (registers, bytes of stack
+    frame and spill stores and loads, from the build log) and the launch
+    configuration that the C function ``config`` gives (subtrees a span,
+    threads and dynamic shared memory a block, blocks an SM)."""
     import re
 
     from fnft_tpu_torch.ops import _build
 
     lib = _build.library()
+    mangled = re.compile(kernel + r"I([df])" + r"Li(\d+)E" * len(keys))
     ptxas = {}
-    for rep in _build.ptxas_report("fused_levels_bwd_kernel"):
-        m = re.search(r"fused_levels_bwd_kernelI([df])Li(\d+)E", rep["kernel"])
-        ptxas[(m.group(1) == "d", int(m.group(2)))] = rep
+    for rep in _build.ptxas_report(kernel):
+        m = mangled.search(rep["kernel"])
+        ptxas[(m.group(1) == "d", *map(int, m.groups()[1:]))] = rep
     out = []
     for is_double in (True, False):
-        for c in (2, 3, 4):
+        for shape in shapes:
             cfg = (ctypes.c_int * 4)()
-            _check_launch("fused_tree_levels_bwd_config",
-                          lib.fnft_fused_tree_levels_bwd_config(
-                              c, int(is_double), cfg))
-            rep = ptxas[(is_double, c)]
+            _check_launch(config, getattr(lib, config)(*shape, int(is_double),
+                                                       cfg))
+            rep = ptxas[(is_double, *shape)]
             out.append({
-                "dtype": "complex128" if is_double else "complex64", "c": c,
+                "dtype": "complex128" if is_double else "complex64",
+                **dict(zip(keys, shape)),
                 "registers": rep["registers"], "stack": rep["stack"],
                 "spill_stores": rep["spill_stores"],
                 "spill_loads": rep["spill_loads"], "span": cfg[0],
                 "threads": cfg[1], "smem": cfg[2], "blocks_per_sm": cfg[3]})
     return out
+
+
+def fused_tree_levels_instances() -> list[dict]:
+    """K1's ten instances (complex128 and complex64 at each (levels, c) of
+    ``K1_SHAPES``): ptxas's registers and spills and the launch
+    configuration on the current CUDA device (see :func:`_instances`)."""
+    return _instances("fused_levels_kernel", "fnft_fused_tree_levels_config",
+                      ("levels", "c"), sorted(K1_SHAPES))
+
+
+def fused_tree_levels_vjp_instances() -> list[dict]:
+    """K1T's six instances (complex128 and complex64, c = 2, 3, 4):
+    ptxas's registers and spills and the launch configuration on the
+    current CUDA device (see :func:`_instances`)."""
+    return _instances("fused_levels_bwd_kernel",
+                      "fnft_fused_tree_levels_bwd_config", ("c",),
+                      [(c,) for _, c in sorted(K1T_SHAPES)])
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,6 @@ from fnft_tpu_torch.ops.kernels import fused_tree_levels
 from fnft_tpu_torch.utils.misc import next_fft_length, next_power_of_2
 
 _CONV_CUTOFF = 16   # coefficient length below which direct convolution wins
-FUSED_LEVELS = 2    # tree levels handed to the fused kernel (K1)
 
 
 # ---------------------------------------------------------------------------
@@ -336,6 +335,23 @@ def _pad_to_power_of_2_2x2(p: torch.Tensor):
     return torch.cat([p, eye], dim=-4), n_pad - n
 
 
+def _k1_levels(p: torch.Tensor, levels: int) -> int:
+    """Tree levels of the padded stack ``p [..., n_pad, 2, 2, c]`` (``levels``
+    in all) to hand the fused kernel K1, 0 for none. Three where c = 3 or 4,
+    which then leaves no direct-convolution level (8 (c - 1) + 1 >
+    ``_CONV_CUTOFF``), n_pad is a multiple of 2^3 * 128 and no gradient
+    flows through ``p`` (K1's backward, K1T, takes two levels). Else two
+    under the JAX package's shape test: c <= 4, n_pad a multiple of
+    2^2 * 128."""
+    c, n_pad = p.shape[-1], p.shape[-4]
+    grad = torch.is_grad_enabled() and p.requires_grad
+    if c in (3, 4) and not grad and levels > 3 and n_pad % (8 * 128) == 0:
+        return 3
+    if c <= 4 and levels > 2 and n_pad % (4 * 128) == 0:
+        return 2
+    return 0
+
+
 def fmult2x2_tree(p: torch.Tensor, *, normalize: bool = True, want=None,
                   jsym: int | None = None, rsym: bool = False):
     """Multiply a stack of 2x2 polynomial matrices via a log-depth FFT tree.
@@ -354,10 +370,10 @@ def fmult2x2_tree(p: torch.Tensor, *, normalize: bool = True, want=None,
         result still comes back in the complex dtype of ``p``. Takes
         precedence over ``jsym`` and skips the fused kernel.
 
-    The first ``FUSED_LEVELS`` levels go to the fused kernel
+    The first levels go to the fused kernel
     (:func:`fnft_tpu_torch.ops.kernels.fused_tree_levels`, plain version on
-    the CPU) under the JAX package's shape test: deg+1 <= 4 and n_pad
-    divisible by 2^FUSED_LEVELS * 128.
+    the CPU): three for deg+1 = 3 or 4, every level direct convolution
+    would take, else two (see :func:`_k1_levels`).
 
     Returns ``(result [..., 2, 2, n*deg+1], w)`` with int32 ``w`` and
     ``true_result = result * 2**w`` (w == 0 when normalize=False).
@@ -371,9 +387,8 @@ def fmult2x2_tree(p: torch.Tensor, *, normalize: bool = True, want=None,
     n_pad = p.shape[-4]
     levels = int(math.log2(n_pad)) if n_pad > 1 else 0
 
-    fuse = FUSED_LEVELS
-    if (not rsym and deg_in + 1 <= 4 and levels > fuse
-            and n_pad % ((1 << fuse) * 128) == 0):
+    fuse = 0 if rsym else _k1_levels(p, levels)
+    if fuse:
         p, w = fused_tree_levels(p.contiguous(), fuse, normalize=normalize)
         levels -= fuse
         if not normalize:

@@ -7,7 +7,7 @@ fnft__poly_fmult.c:381-546):
 * the D samples are split into S contiguous time chunks, one per rank on
   the ``seq`` mesh axis;
 * each rank builds its per-sample transfer matrices and runs the FFT tree
-  (K1 in its first two levels) **only on its chunk**;
+  (K1 in its first levels) **only on its chunk**;
 * each rank chirp-Z-evaluates its chunk polynomial at the M spectral
   points, and the ordered product ``H(xi) = P_{S-1}(xi) @ ... @ P_0(xi)`` is
   composed **in value space** by a log2(S)-step butterfly of pairwise

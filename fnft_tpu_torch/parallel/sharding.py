@@ -4,7 +4,7 @@ Port of the batched functions of ``fnft_tpu/parallel/sharding.py``. The
 JAX package vmaps a per-signal program and jits it once per geometry; here
 the batch is the leading tensor axis and every layer takes it: the
 preprocessing indexes ``[..., idx]``, the fmult tree (and K1 in its first
-two levels, which folds the batch into its subtree count) works on
+levels, which folds the batch into its subtree count) works on
 ``[B, n, 2, 2, c]``, the chirp-Z transform on ``[B, 2, deg+1]`` rows. A
 ``make_*`` function fixes the geometry and returns a plain callable on
 tensors, which holds the geometry's chirp-Z tables on the device.

@@ -54,14 +54,21 @@ def cuda_device():
                                           ((1024, 2, 2, 4), 2),
                                           ((788, 2, 2, 3), 2),
                                           ((2, 3, 196, 2, 2, 4), 2),
-                                          ((1 << 20, 2, 2, 3), 2)])
+                                          ((1 << 20, 2, 2, 3), 2),
+                                          ((4096, 2, 2, 3), 3),
+                                          ((1 << 20, 2, 2, 3), 3),
+                                          ((2, 3, 1024, 2, 2, 4), 3),
+                                          ((1576, 2, 2, 3), 3),
+                                          ((424, 2, 2, 4), 3)])
 @pytest.mark.parametrize("dtype,tol", [(torch.complex128, 1e-12),
                                        (torch.complex64, 5e-6)])
 @pytest.mark.parametrize("normalize", [False, True])
 def test_fused_levels_kernel_matches_plain(cuda_device, shape, levels, dtype,
                                            tol, normalize):
-    """(788, ...) gives 197 subtrees, not a multiple of a block's 64;
-    n = 1024, 4096, 2^20 (c = 3) are the nsev main path's shapes."""
+    """(788, ...) gives 197 subtrees, not a multiple of a block's 64, and
+    at three levels (1576, ...) and (424, ...) give 197 and 53, not
+    multiples of a span (16, or 12 at c = 4 in fp64); n = 1024, 4096, 2^20
+    (c = 3) are the nsev main path's shapes."""
     rng = np.random.default_rng(sum(shape))
     p = torch.as_tensor(_cplx(rng, shape)).to(dtype).to(cuda_device)
     got, w = kernels.fused_tree_levels(p, levels, normalize=normalize)
@@ -369,6 +376,58 @@ def test_fused_levels_backward_kernel_does_not_spill(cuda_device):
 
 
 @pytest.mark.cuda
+def test_three_level_kernel_does_not_spill(cuda_device):
+    """ptxas's report in the build log for K1's ten instances (fp64 and
+    fp32 at two levels and c = 2, 3, 4, at three levels and c = 3, 4): no
+    three-level instance spills, and two of its blocks fit on an SM. (The
+    one-thread-a-subtree design of two levels spills in fp64 at c = 3 and
+    4; its numbers are in PERF.md.)"""
+    insts = kernels.fused_tree_levels_instances()
+    assert sorted((i["dtype"], i["levels"], i["c"]) for i in insts) == sorted(
+        (d, lv, c) for d in ("complex128", "complex64")
+        for lv, c in kernels.K1_SHAPES)
+    for inst in insts:
+        assert inst["blocks_per_sm"] >= 1, inst
+        if inst["levels"] == 3:
+            assert inst["spill_stores"] == 0 and inst["spill_loads"] == 0, inst
+            assert inst["blocks_per_sm"] >= 2, inst
+
+
+@pytest.mark.cuda
+def test_batched_contspec_three_levels_equal_on_card_and_cpu(cuda_device):
+    """The batched contspec of 64 signals at D = M = 4096 (2SPLIT4B): its
+    tree hands K1 the [64, 4096, 2, 2, 3] stack at three levels in one
+    launch, and the tree's result and rho equal the CPU's to 1e-12."""
+    from fnft_tpu_torch.ops import poly
+    from fnft_tpu_torch.ops.fscatter import (Discretization,
+                                             transfer_matrix_coeffs)
+    from fnft_tpu_torch.parallel import make_nsev_batch_fn
+
+    d, t_span, xi_span = 4096, (-16.0, 16.0), (-3.0, 3.0)
+    t = np.linspace(*t_span, d)
+    rng = np.random.default_rng(11)
+    q = (rng.uniform(0.5, 2.5, (64, 1)) / np.cosh(t)[None]
+         * np.exp(1j * rng.uniform(0, 2 * np.pi, (64, 1))))
+    eps_t = (t_span[1] - t_span[0]) / (d - 1)
+    trees, rhos, launches = {}, {}, {}
+    for dev in ("cpu", cuda_device):
+        qt = torch.as_tensor(q, device=dev)
+        p = transfer_matrix_coeffs(qt, -qt.conj(), eps_t,
+                                   Discretization.SPLIT4B)
+        kernels.reset_launches()
+        trees[str(dev)] = [x.cpu() for x in poly.fmult2x2_tree(p, jsym=+1)]
+        launches[str(dev)] = dict(kernels.LAUNCHES)
+        rhos[str(dev)] = make_nsev_batch_fn(d, t_span, d, xi_span,
+                                            device=dev)(qt)["rho"].cpu()
+    assert launches["cuda"]["fused_tree_levels"] == 1
+    assert launches["cuda"]["fused_tree_levels_l3"] == 1
+    (tm, w), (tm_ref, w_ref) = trees["cuda"], trees["cpu"]
+    assert torch.equal(w, w_ref)
+    assert _rel(tm, tm_ref) < 1e-12
+    assert _rel(rhos["cuda"], rhos["cpu"]) < 1e-12
+
+
+@pytest.mark.cuda
 def test_tree_backward_equal_on_card_and_cpu(cuda_device):
     """backward() through fmult2x2_tree (K1, then K1T on the card) on the
     2SPLIT4B transfer matrices of a random signal: the gradient of a real
@@ -393,6 +452,7 @@ def test_tree_backward_equal_on_card_and_cpu(cuda_device):
         grads[str(dev)] = qt.grad.cpu()
         launches[str(dev)] = dict(kernels.LAUNCHES)
     assert launches["cuda"]["fused_tree_levels"] == 1
+    assert launches["cuda"]["fused_tree_levels_l3"] == 0
     assert launches["cuda"]["fused_tree_levels_bwd"] == 1
     assert _rel(grads["cuda"], grads["cpu"]) < 1e-10
 

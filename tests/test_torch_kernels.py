@@ -9,6 +9,9 @@ versions on the card). Tolerances: the same algorithm in the same
 precision, differing only in summation order.
 """
 
+from functools import partial
+
+import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -34,29 +37,35 @@ def _rel(got, ref):
 # K1 plain version vs JAX
 # ---------------------------------------------------------------------------
 
+@partial(jax.jit, static_argnums=1)
+def _jax_levels(x, levels):
+    """``levels`` rounds of the JAX package's direct-convolution level."""
+    for _ in range(levels):
+        x = jpoly._matpoly_product(x[..., 1::2, :, :, :], x[..., 0::2, :, :, :])
+    return x
+
+
 @pytest.mark.parametrize("n,c,levels,dtype,tol", [
     (1024, 3, 2, np.complex128, 1e-13),
     (1024, 2, 3, np.complex128, 1e-13),
     (1024, 3, 2, np.complex64, 5e-6),
+    (1024, 3, 3, np.complex128, 1e-13),
+    (1024, 4, 3, np.complex128, 1e-13),
+    (1024, 3, 3, np.complex64, 5e-6),
+    (1024, 4, 3, np.complex64, 5e-6),
 ])
 def test_fused_levels_plain_matches_jax(n, c, levels, dtype, tol):
     rng = np.random.default_rng(n + c)
     p = _cplx(rng, (n, 2, 2, c), dtype)
     got, w = kernels.fused_tree_levels(torch.as_tensor(p), levels)
-    x = jnp.asarray(p)
-    for _ in range(levels):
-        x = jpoly._matpoly_product(x[..., 1::2, :, :, :], x[..., 0::2, :, :, :])
+    x = _jax_levels(jnp.asarray(p), levels)
     assert got.dtype == torch.as_tensor(p).dtype
     assert tuple(got.shape) == x.shape and torch.all(w == 0)
     assert _rel(got.numpy(), x) < tol
 
 
-def test_fused_levels_plain_batched_and_normalized():
-    """stored * 2**w reproduces the unnormalized product; max(|re|,|im|) of
-    each subtree lies in [1, 2); the exponent equals the JAX rule
-    floor(log2(max)) on this seed."""
-    rng = np.random.default_rng(3)
-    b, n, c, levels = 3, 512, 2, 2
+def _check_batched_and_normalized(b, n, c, levels, seed):
+    rng = np.random.default_rng(seed)
     p = torch.as_tensor(_cplx(rng, (b, n, 2, 2, c)))
     got, w = kernels.fused_tree_levels(p, levels, normalize=True)
     raw, _ = kernels.fused_tree_levels(p, levels)
@@ -70,6 +79,20 @@ def test_fused_levels_plain_batched_and_normalized():
     raw_mx = np.max(np.abs(np.stack([raw.numpy().real, raw.numpy().imag])),
                     axis=(0, -3, -2, -1))
     assert np.array_equal(w.numpy(), np.floor(np.log2(raw_mx)).astype(np.int32))
+
+
+def test_fused_levels_plain_batched_and_normalized():
+    """stored * 2**w reproduces the unnormalized product; max(|re|,|im|) of
+    each subtree lies in [1, 2); the exponent equals the JAX rule
+    floor(log2(max)) on this seed."""
+    _check_batched_and_normalized(3, 512, 2, 2, seed=3)
+
+
+@pytest.mark.parametrize("c", [3, 4])
+def test_fused_levels_plain_three_levels_normalized(c):
+    """The same at three levels, K1's count for c = 3 and 4 (one rescale of
+    each subtree of 8 matrices)."""
+    _check_batched_and_normalized(2, 1024, c, 3, seed=c)
 
 
 def test_pow2_exact_and_scaling_exact():
@@ -103,9 +126,11 @@ def test_kernel_wrappers_route_by_device():
     kernels.reset_launches()
     ones = torch.ones((8, 2, 2, 3), dtype=torch.complex128)
     kernels.fused_tree_levels(ones, 2)
+    kernels.fused_tree_levels(ones, 3)
     kernels.fused_tree_levels_vjp(ones, None, torch.ones((2, 2, 2, 9),
                                                          dtype=ones.dtype), 2)
     assert kernels.LAUNCHES == {"fused_tree_levels": 0,
+                                "fused_tree_levels_l3": 0,
                                 "fused_tree_levels_bwd": 0,
                                 "repulsion_sum": 0}
 

@@ -64,7 +64,8 @@ def test_scatter_bound_states_bo_matches_jax(skip_b):
 
 def test_nsev_slice_matches_jax(monkeypatch):
     """Default options plus BOTH/BOTH on the sech at D = 1024: both passes
-    (Dsub = 341 -> 512 padded) hand two tree levels to K1's plain version."""
+    (Dsub = 341 -> 512 padded, then D = 1024) hand K1's plain version two
+    and three tree levels."""
     data = nsev_testcase(NsevTestcase.SECH_FOCUSING, 1024)
     jopts = jft.NsevOpts(contspec_type=jft.ContspecType.BOTH,
                          discspec_type=jft.DiscspecType.BOTH)
@@ -74,11 +75,11 @@ def test_nsev_slice_matches_jax(monkeypatch):
     orig = kernels.fused_tree_levels_plain
     monkeypatch.setattr(
         kernels, "fused_tree_levels_plain",
-        lambda p, lv, **k: calls.append(p.shape[0]) or orig(p, lv, **k))
+        lambda p, lv, **k: calls.append((p.shape[0], lv)) or orig(p, lv, **k))
     got = tft.nsev(torch.as_tensor(data.q), data.t_span, m=data.m,
                    xi_span=data.xi_span,
                    opts=compat.opts_from_reference(jopts))
-    assert calls == [512, 1024]
+    assert calls == [(512, 2), (1024, 3)]
     for field in ("reflection_coefficient", "a", "b"):
         assert _rel(getattr(got, field), getattr(ref, field)) <= 1e-8, field
     bs_ref = np.asarray(ref.bound_states)

@@ -108,7 +108,8 @@ def test_split4b_transfer_matrices_match_jax():
                                     (1023, ((0, 0), (1, 0)))])
 def test_fmult2x2_tree_matches_jax(n, want, monkeypatch):
     """n = 1024 takes the J-symmetric value tree, 768 and 1023 the generic
-    one after identity padding; all three hand two levels to K1."""
+    one after identity padding; all three hand three levels to K1 (every
+    level direct convolution would take at 3 coefficients)."""
     q, r, eps_t = _sech_step_matrices(n)
     p = np.array(jfs.transfer_matrix_coeffs(
         jnp.asarray(q), jnp.asarray(r), eps_t, jdisc.Discretization.SPLIT4B))
@@ -117,7 +118,7 @@ def test_fmult2x2_tree_matches_jax(n, want, monkeypatch):
     monkeypatch.setattr(tpoly, "fused_tree_levels",
                         lambda p_, lv, **k: calls.append(lv) or orig(p_, lv, **k))
     got, w = tpoly.fmult2x2_tree(torch.as_tensor(p), want=want, jsym=+1)
-    assert calls == [2]
+    assert calls == [3]
     # the JAX package's jitted fscatter: same matrices, same tree
     ref, w_ref = jfs.fscatter(jnp.asarray(q), jnp.asarray(r), eps_t,
                               jdisc.Discretization.SPLIT4B, want=want, jsym=+1)
@@ -126,6 +127,32 @@ def test_fmult2x2_tree_matches_jax(n, want, monkeypatch):
     assert _rel(got.numpy(), ref) <= 1e-8
     if want is not None:
         assert torch.all(got[0, 1] == 0) and torch.all(got[1, 1] == 0)
+
+
+@pytest.mark.parametrize("case", ["requires_grad", "two_coefficients"])
+def test_fmult2x2_tree_keeps_two_k1_levels(case, monkeypatch):
+    """Where K1's backward (two levels only) may run, and at 2 coefficients,
+    the tree hands K1 two levels, and its result equals the one that three
+    (resp. no) fused levels give."""
+    rng = np.random.default_rng(7)
+    c = 3 if case == "requires_grad" else 2
+    p = torch.as_tensor(0.5 * (rng.normal(size=(1024, 2, 2, c))
+                               + 1j * rng.normal(size=(1024, 2, 2, c))))
+    calls = []
+    orig = tpoly.fused_tree_levels
+    monkeypatch.setattr(tpoly, "fused_tree_levels",
+                        lambda p_, lv, **k: calls.append(lv) or orig(p_, lv, **k))
+    got, w = tpoly.fmult2x2_tree(p.requires_grad_(case == "requires_grad"))
+    assert calls == [2]
+    if case == "requires_grad":
+        ref, w_ref = tpoly.fmult2x2_tree(p.detach())
+        assert calls == [2, 3]
+    else:
+        monkeypatch.setattr(tpoly, "_k1_levels", lambda *a: 0)
+        ref, w_ref = tpoly.fmult2x2_tree(p)
+        assert calls == [2]
+    assert int(w) == int(w_ref)
+    assert _rel(got.detach().numpy(), ref.numpy()) <= 1e-12
 
 
 def test_fmult2x2_tree_small_and_unnormalized_match_jax():
